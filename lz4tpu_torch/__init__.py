@@ -1,33 +1,50 @@
 """lz4tpu_torch — the lz4tpu LZ4 codec on PyTorch and CUDA (Hopper).
 
-A port of ``lz4tpu`` beside it.  This slice covers the batched device
-decode, :func:`decompress_to_device`, with its three engines: sparse
-programs (block-fill kernel), the fused kernel and the mxu2 kernel,
-each a CUDA C++ kernel for ``sm_90a`` (``csrc/``) beside a plain
-PyTorch version that runs on the CPU.  The host layer (frame parse,
-native token scan, checksums, the streaming host engine) is
-``lz4tpu``'s own, imported; nothing here imports JAX.
+A port of ``lz4tpu`` beside it, and a package of its own: it imports
+``torch`` and numpy, never JAX and nothing of ``lz4tpu``.  What it needs
+of the host layer (frame parse, streaming engine, the native C++ engine,
+xxh32, the encoder) it carries as its own copies under the same module
+names, so its exception classes are its own too, with ``lz4tpu``'s
+names and messages.
 
-The exception classes are ``lz4tpu``'s, so ``except`` clauses written
-for one package match errors from the other.
+The device side covers the batched decode (:func:`decompress_to_device`,
+:func:`decompress_device`, ``decompress(backend="device")``) with its
+engines (sparse programs, the fused kernel, the mxu2 kernel, the
+segment-copy kernel, the byte-parallel resolver) and checksum
+verification on the device (``verify="device"``).  Every kernel is CUDA
+C++ for ``sm_90a`` (``csrc/``) beside a plain PyTorch version that runs
+on the CPU.
 """
 
-from lz4tpu.constants import (
+from .constants import (
     FOR_ALL,
     FOR_LEGACY,
     FOR_MODERN,
+    HISTORY_SIZE,
+    EndOfFrame,
     Reservation,
 )
-from lz4tpu.errors import (
+from .errors import (
     ChecksumError,
     DataCorruption,
     Lz4Error,
     NotSupported,
     TooFewHeaderBytes,
     TooLittleMemory,
+    hex8,
+    hex32,
 )
-
-from .pipeline import decompress_to_device
+from .stream import Decompressor, Format
+from .xxh32 import XXHash32, xxh32
+from .api import (
+    Compressor,
+    compress,
+    decompress,
+    decompress_host,
+    decompress_into,
+    min_buffer_size,
+)
+from .pipeline import decompress_device, decompress_to_device
 
 
 class DecodeSession:
@@ -55,18 +72,33 @@ def compress_device(*args, **kwargs):
 
 
 __all__ = [
+    "Decompressor",
+    "Format",
+    "XXHash32",
+    "xxh32",
+    "Compressor",
+    "compress",
+    "decompress",
+    "decompress_host",
+    "decompress_into",
+    "min_buffer_size",
     "decompress_to_device",
+    "decompress_device",
     "DecodeSession",
     "decompress_sharded",
     "compress_device",
     "Reservation",
+    "EndOfFrame",
     "FOR_ALL",
     "FOR_LEGACY",
     "FOR_MODERN",
+    "HISTORY_SIZE",
     "Lz4Error",
     "ChecksumError",
     "DataCorruption",
     "NotSupported",
     "TooFewHeaderBytes",
     "TooLittleMemory",
+    "hex8",
+    "hex32",
 ]

@@ -1,7 +1,8 @@
 """Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
 The sources are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, cached
+(``sm_90a``), one compiler process per source and all started together,
+and linked into one shared library with a plain C interface, cached
 under ``build/lz4tpu_torch/`` beside the package (override with
 ``LZ4TPU_TORCH_BUILD``) and rebuilt when a source is newer.  The library
 is bound with ``ctypes``: every pointer and the stream are ``c_void_p``.
@@ -29,11 +30,12 @@ BUILD_DIR = pathlib.Path(os.environ.get(
     "LZ4TPU_TORCH_BUILD", CSRC.parent.parent / "build" / "lz4tpu_torch"))
 LIB_NAME = "liblz4tpu_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 #: Launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"fused_expand": 0, "fused_route": 0, "mxu2_route": 0,
-            "block_fill": 0}
+            "block_fill": 0, "xxh32_stream": 0, "xxh32_blocks": 0,
+            "segment_decode": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -46,6 +48,9 @@ _SIGNATURES = {
     "lz4t_fused_expand": [_P, _P, _P, _P, _I64, _P],
     "lz4t_fused_route": [_P, _P, _P, _P, _P, _I32, _P, _P, _P, _P],
     "lz4t_mxu2_route": [_P, _P, _P, _I32, _P, _P, _P, _P],
+    "lz4t_xxh32_stream": [_P, _I64, _P, _P, _P],
+    "lz4t_xxh32_blocks": [_P, _P, _P, _I32, _P, _P],
+    "lz4t_segment_decode": [_P, _P, _I64, _P, _I32, _P, _P],
 }
 
 
@@ -69,25 +74,46 @@ def _nvcc() -> str:
 
 def build() -> pathlib.Path:
     """Compile ``csrc/*.cu`` into the cached shared library if it is
-    missing or older than a source; returns its path.  The compiler's
-    output, ``-Xptxas -v`` register and shared-memory report included,
-    is kept in ``nvcc.log`` beside it."""
+    missing or older than a source; returns its path.  Each source is
+    compiled to an object by its own ``nvcc`` process, all running at
+    once, then one link.  The compilers' output, ``-Xptxas -v`` register
+    and shared-memory report included, is kept in ``nvcc.log`` beside
+    the library."""
     sources = sorted(CSRC.glob("*.cu"))
     newest = max(p.stat().st_mtime for p in [*sources, *CSRC.glob("*.cuh")])
     so = BUILD_DIR / LIB_NAME
     if so.exists() and so.stat().st_mtime >= newest:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, sources)]
-    r = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (BUILD_DIR / "nvcc.log").write_text(r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"lz4tpu_torch: nvcc failed with status {r.returncode}:\n"
-            f"{r.stderr[-4000:]}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [BUILD_DIR / f"{p.stem}.{tag}.o" for p in sources]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(p)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p, o in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    try:
+        failed = [(p, lg) for p, proc, lg in zip(sources, procs, logs)
+                  if proc.returncode != 0]
+        if not failed:
+            r = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True, check=False)
+            logs.append(r.stdout + r.stderr)
+            if r.returncode != 0:
+                failed = [(so, logs[-1])]
+        (BUILD_DIR / "nvcc.log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError(
+                f"lz4tpu_torch: nvcc failed on {failed[0][0].name}:\n"
+                f"{failed[0][1][-4000:]}")
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return so
 
 
@@ -138,5 +164,5 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     if status != 0:
         msg = lib().lz4t_error_string(status).decode()
         raise RuntimeError(
-            f"lz4tpu_torch: {kernel} launch failed: {msg} ({status})")
+            f"lz4tpu_torch: {entry} launch failed: {msg} ({status})")
     LAUNCHES[kernel] += 1

@@ -1,5 +1,6 @@
 """Device engines of the port: sparse programs with the block-fill
-kernel, the fused kernel and the mxu2 kernel."""
+kernel, the fused kernel, the mxu2 kernel, the segment-copy kernel, the
+byte-parallel resolver and the xxh32 kernels."""
 
 from __future__ import annotations
 
@@ -21,12 +22,12 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
 
 
 def native_engine():
-    """``lz4tpu.native``, which the fused prep and the mxu2 packer
-    require (the port carries no numpy fallback)."""
-    from lz4tpu import native
+    """``lz4tpu_torch.native``, which the fused prep and the mxu2
+    packer require (the port carries no numpy fallback)."""
+    from .. import native
 
     if not native.available():
         raise RuntimeError(
-            "lz4tpu_torch: the native engine (lz4tpu.native, built with "
-            "g++) is required for the fused and mxu2 host prep")
+            "lz4tpu_torch: the native engine (lz4tpu_torch.native, built "
+            "with g++) is required for the fused and mxu2 host prep")
     return native

@@ -403,6 +403,21 @@ def route_plain(pos17: torch.Tensor, lits: torch.Tensor,
     return rows, ring
 
 
+def decode_split(seqrec: torch.Tensor, lits: torch.Tensor,
+                 winq: torch.Tensor, scal: torch.Tensor, patch: torch.Tensor,
+                 ring_init: torch.Tensor | None = None, *, n_sub: int):
+    """Two-launch decode of one chain's ``n_sub`` substeps: parallel
+    expansion to pos17, then serial routing (the counterpart of
+    ``lz4tpu.device.fused._decode_split_device``, whose two Pallas
+    kernels kernel H1's two launches replace).  Returns ``(rows,
+    ring_out)``: uint8 ``(n_sub * SUB,)`` and the final ``(65536,)``
+    ring; ``ring_init`` seeds the ring (zeros when None)."""
+    segs = segments_tensor([(0, n_sub, int(ring_init is not None))],
+                           seqrec.device)
+    pos17 = expand(seqrec[:n_sub], scal[:n_sub], patch[:n_sub])
+    return route(pos17, lits, winq[:n_sub], scal[:n_sub], segs, ring_init)
+
+
 # ---------------------------------------------------------------------------
 # whole-prep decode
 # ---------------------------------------------------------------------------

@@ -1,47 +1,448 @@
-"""Batched decode into a device tensor (port of ``lz4tpu.pipeline``'s
-``decompress_to_device`` path).
+"""Batched device decode pipeline (port of ``lz4tpu.pipeline``): host
+parse -> sequence tables -> device engines -> verification.
 
-The host layer is the JAX package's, imported: frame parse, native
-token scan (``build_seq_table``), chain grouping (``_chains_of``) and
-checksum verification (``_verify_checksums``).  The classifier
-(:func:`plan_decode`) is a copy that plans with the port's JAX-free
-fused prep and mxu2 packer; each chain then runs on one engine:
+The host does the control-flow-heavy, byte-granular work over
+*compressed* bytes (frame headers, token scan: O(compressed size),
+native code); the device does all work proportional to *decompressed*
+bytes.  The classifier (:func:`plan_decode`) gives each chain one
+engine:
 
-* sparse program (zeros/RLE, stored/incompressible) — torch slicing
+* sparse program (zeros/RLE, stored/incompressible): torch slicing
   plus the block-fill kernel;
 * fused kernel (text within the fused budgets);
-* mxu2 kernel (text that overflows the fused patch budget).
+* mxu2 kernel (text that overflows the fused patch budget);
+* segment-copy kernel / byte-parallel resolver (anything the fast
+  paths decline; ``decompress_device(engine="pallas"|"resolve")``).
 
-``device="cpu"`` runs every engine's plain PyTorch version.
+Verification parity: block checksums, content checksums, content-size
+accounting and back-reference range checks all happen with the same
+error class names and messages as the streaming core; when a
+payload-level error is detected, the offending data is re-run through
+the streaming oracle so the diagnostic (including embedded positions)
+is byte-identical to the reference's.
+
+``device`` is explicit everywhere: ``"cuda"`` runs the kernels and
+raises when CUDA is absent; ``"cpu"`` runs every engine's plain PyTorch
+version.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
-from lz4tpu.constants import FOR_ALL, Reservation
-from lz4tpu.errors import Lz4Error
-from lz4tpu.frame import parse_frames
-from lz4tpu.pipeline import (  # noqa: F401  (SeqTable, DecodeStats re-exported)
-    _DENSE_MAX_CHAIN_OUT,
-    _FUSED_MAX_CHAIN_OUT,
-    _SPARSE_MAX_SEQS,
-    BatchCapacityExceeded,
-    DecodePlan,
-    DecodeStats,
-    SeqTable,
-    _chains_of,
-    _verify_checksums,
-    build_seq_table,
-)
-
+from .constants import FOR_ALL, Reservation
 from .device import fused as fu
 from .device import mxu2 as mx
 from .device import sparse_decode as sp
 from .device import to_device
+from .errors import (
+    DataCorruption,
+    Lz4Error,
+    err_block_checksum,
+    err_content_checksum,
+    err_content_size_exceeded,
+    err_content_size_leftover,
+)
+from .frame import ParseResult, parse_frames
+
+
+@dataclasses.dataclass
+class DecodeStats:
+    """Observability counters for one device-pipeline decode.
+
+    Counters and per-stage wall times, exposed via
+    ``decompress_device(..., stats=...)``.  Times are seconds;
+    ``device_s`` includes transfers and the host fetch of
+    device-resident output (which synchronises the device).
+    """
+
+    comp_bytes: int = 0
+    out_bytes: int = 0
+    n_frames: int = 0
+    n_blocks: int = 0
+    n_chains: int = 0
+    n_seqs: int = 0
+    engine_chains: dict = dataclasses.field(default_factory=dict)
+    engine_bytes: dict = dataclasses.field(default_factory=dict)
+    parse_s: float = 0.0
+    scan_s: float = 0.0
+    plan_s: float = 0.0
+    device_s: float = 0.0
+    verify_s: float = 0.0
+
+    def note_engine(self, name: str, chain) -> None:
+        self.engine_chains[name] = self.engine_chains.get(name, 0) + 1
+        self.engine_bytes[name] = (
+            self.engine_bytes.get(name, 0) + chain.out_hi - chain.out_lo
+        )
+
+
+@dataclasses.dataclass
+class BlockSpan:
+    """Seq-table/output span of one block (for chain dispatch)."""
+
+    frame_id: int
+    seq_lo: int
+    seq_hi: int
+    out_lo: int
+    out_hi: int
+    independent: bool
+
+
+@dataclasses.dataclass
+class SeqTable:
+    """Global structure-of-arrays sequence table for a whole buffer."""
+
+    out_start: np.ndarray   # int32 [S] global output offset
+    lit_len: np.ndarray     # int32 [S]
+    lit_src: np.ndarray     # int32 [S] global offset into the input buffer
+    match_len: np.ndarray   # int32 [S] 0 for trailing literal-only sequences
+    match_off: np.ndarray   # int32 [S] >= 1 always
+    n_out: int
+    frame_out_start: np.ndarray  # int64 [F+1] output offsets of frame bounds
+    spans: list = dataclasses.field(default_factory=list)  # [BlockSpan]
+    # Single-block fast path only (build_seq_table(pooled_cols=True)):
+    # (starts_ext[S+2], litpos_ext[S+2], lits_flat, max_off) from
+    # native.scan_block_full — lets prep_fused skip its phase 1
+    # (prefix sums + literal extraction).  When set, ALL columns are
+    # views into per-thread scan scratch, invalidated by the thread's
+    # next build_seq_table — the request pipeline consumes a table
+    # fully before scanning the next request.
+    pre: tuple | None = None
+
+
+def _oracle_rerun(data: bytes, reservation: Reservation) -> None:
+    """Raise the contract-exact error by re-running the streaming path.
+
+    Always raises.  The expected outcome is the streaming engine's
+    reference-parity exception for whatever the batch scan tripped on.
+    If the push parser instead stalls (it waits for more input on a
+    truncated tail rather than erroring) or — which would be a batch
+    classifier bug — finishes cleanly, the no-progress diagnostic the
+    one-shot streaming API uses is raised, so no caller can fall
+    through to a made-up message."""
+    from .api import decompress_host
+    from .stream import Decompressor
+
+    reservation = Reservation(reservation)
+    if reservation.is_concrete:
+        decompress_host(data, reservation)
+    else:
+        arr = np.frombuffer(bytes(data), dtype=np.uint8)
+        ctx, consumed = Decompressor.from_header(arr, reservation)
+        stall = 0
+        while consumed < arr.size and stall <= 4:
+            got, _chunk = ctx.update(arr[consumed:])
+            consumed += got
+            stall = stall + 1 if got == 0 else 0
+    raise DataCorruption("Decoder made no progress; corrupt input.")
+
+
+class BatchCapacityExceeded(Exception):
+    """The batched pipeline's sequence table uses int32 global output
+    coordinates; streams decoding past 2**31-1 bytes must go through
+    the (size-unbounded) streaming host engine instead.  Raised before
+    any truncated coordinate can be used; callers fall back."""
+
+
+_BATCH_MAX_OUT = (1 << 31) - 1
+
+
+def _build_seq_table_single(
+    buf: np.ndarray, parsed: ParseResult, reservation: Reservation, data
+) -> SeqTable:
+    """Single-compressed-block fast path: ONE native pass emits the
+    columns (with the fused prep's sentinel slots), the cumulative
+    literal positions, and the extracted literal stream — no column
+    concatenation, no second prefix pass in prep (the dominant
+    request shape: one frame, one block, e.g. any stream <= the 4 MiB
+    max block size).  Columns alias per-thread scan scratch — see
+    SeqTable.pre."""
+    from . import native
+
+    frame = parsed.frames[0]
+    blk = frame.blocks[0]
+    if blk.comp_off + blk.comp_len > _BATCH_MAX_OUT:
+        raise BatchCapacityExceeded(blk.comp_off + blk.comp_len)
+    (status, starts_ext, ll, ls, ml, mo, litpos_ext, lits, total,
+     min_reach, max_off) = native.scan_block_full(
+        buf[blk.comp_off:blk.comp_off + blk.comp_len], blk.comp_off)
+    if status != native.OK:
+        _oracle_rerun(data, reservation)   # always raises
+    if min_reach < 0:
+        # back-reference before the frame start (lz4ada.adb:867-874)
+        _oracle_rerun(data, reservation)   # always raises
+    if total > _BATCH_MAX_OUT:
+        raise BatchCapacityExceeded(total)
+    if frame.content_size is not None:
+        if total > frame.content_size:
+            raise err_content_size_exceeded()
+        if total < frame.content_size:
+            raise err_content_size_leftover(frame.content_size - total)
+    span = BlockSpan(
+        frame_id=frame.frame_id,
+        seq_lo=0, seq_hi=ll.size,
+        out_lo=0, out_hi=total,
+        independent=frame.block_independence,
+    )
+    return SeqTable(
+        out_start=starts_ext[:ll.size],
+        lit_len=ll, lit_src=ls, match_len=ml, match_off=mo,
+        n_out=total,
+        frame_out_start=np.array([0, total], np.int64),
+        spans=[span],
+        pre=(starts_ext, litpos_ext, lits, max_off),
+    )
+
+
+def build_seq_table(
+    buf: np.ndarray, parsed: ParseResult, reservation: Reservation, data,
+    pooled_cols: bool = False,
+) -> SeqTable:
+    """Token-scan every block into one global sequence table.
+
+    Uncompressed blocks become single literal-only pseudo-sequences.
+    Raises with reference parity on malformed payloads (via oracle
+    re-run, so embedded diagnostic values match exactly).  Raises
+    BatchCapacityExceeded when total output exceeds int32 coordinates
+    (callers fall back to the streaming host engine).
+
+    Blocks scan independently, so multi-block streams fan the native
+    token scan across worker threads (the scan runs block-relative —
+    ctypes releases the GIL — and the global output prefix is added to
+    the per-block columns afterwards, a single vectorized pass).
+
+    ``pooled_cols=True`` (internal request paths) enables the
+    single-compressed-block fast path whose columns alias per-thread
+    scan scratch (see SeqTable.pre): valid until this thread's next
+    build_seq_table call, so callers must fully consume the table
+    before building another.  Default False always returns
+    caller-owned arrays.
+    """
+    from . import native
+
+    if (pooled_cols and native.available()
+            and len(parsed.frames) == 1
+            and len(parsed.frames[0].blocks) == 1
+            and parsed.frames[0].blocks[0].is_compressed):
+        return _build_seq_table_single(buf, parsed, reservation, data)
+
+    # Phase A: scan all compressed blocks, block-relative, possibly in
+    # parallel.  Results consumed in stream order below, so error
+    # ordering (first malformed block wins) is preserved.  Blocks at or
+    # past the first coordinate-capacity violation are excluded — the
+    # loop below raises there, so scanning them would be wasted work.
+    comp_blocks = []
+    for frame in parsed.frames:
+        for blk in frame.blocks:
+            if blk.comp_off + blk.comp_len > _BATCH_MAX_OUT:
+                break
+            if blk.is_compressed:
+                comp_blocks.append(blk)
+        else:
+            continue
+        break
+
+    # pooled scan output is only safe when no second scan can clobber
+    # the views before the column concatenation below consumes them —
+    # i.e. exactly one compressed block (the big single-chain case)
+    use_pool = len(comp_blocks) == 1
+
+    def _scan(blk):
+        return native.scan_sequences(
+            buf[blk.comp_off:blk.comp_off + blk.comp_len], blk.comp_off,
+            0, pooled=use_pool,
+        )
+
+    threads = native.pack_threads()
+    if len(comp_blocks) > 1 and threads > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(
+            max_workers=min(threads, len(comp_blocks))
+        ) as ex:
+            scans = dict(zip(map(id, comp_blocks),
+                             ex.map(_scan, comp_blocks)))
+    else:
+        scans = {id(blk): _scan(blk) for blk in comp_blocks}
+
+    chunks: list[tuple[np.ndarray, ...]] = []
+    spans: list[BlockSpan] = []
+    n_out = 0
+    n_seq = 0
+    frame_bounds = [0] * (len(parsed.frames) + 1)
+    for frame in parsed.frames:
+        frame_start_out = n_out
+        frame_span_lo = len(spans)
+        frame_crosses = False
+        for blk in frame.blocks:
+            span = BlockSpan(
+                frame_id=frame.frame_id,
+                seq_lo=n_seq, seq_hi=n_seq,
+                out_lo=n_out, out_hi=n_out,
+                independent=frame.block_independence,
+            )
+            if blk.comp_off + blk.comp_len > _BATCH_MAX_OUT:
+                # input coordinates (lit_src / uncompressed pseudo-seq
+                # src) are int32 too
+                raise BatchCapacityExceeded(blk.comp_off + blk.comp_len)
+            if not blk.is_compressed:
+                chunks.append(
+                    (
+                        np.array([n_out], np.int32),
+                        np.array([blk.comp_len], np.int32),
+                        np.array([blk.comp_off], np.int32),
+                        np.array([0], np.int32),
+                        np.array([1], np.int32),
+                    )
+                )
+                n_out += blk.comp_len
+                if n_out > _BATCH_MAX_OUT:
+                    raise BatchCapacityExceeded(n_out)
+                n_seq += 1
+                span.seq_hi = n_seq
+                span.out_hi = n_out
+                spans.append(span)
+                continue
+            status, starts, ll, ls, ml, mo, total, min_reach = (
+                scans.pop(id(blk))
+            )
+            if status != native.OK:
+                _oracle_rerun(data, reservation)   # always raises
+            if n_out:
+                # shift block-relative output coords to global
+                starts = starts + np.int32(n_out)
+            if min_reach < (1 << 62):   # no-match sentinel stays put
+                min_reach += n_out
+            # Back-reference range check: a match may not reach before
+            # the start of its frame (equivalent to the reference's
+            # H_Offset < 0 check, lz4ada.adb:867-874).
+            if min_reach < frame_start_out:
+                _oracle_rerun(data, reservation)   # always raises
+            if frame.block_independence and not frame_crosses:
+                # The reference ignores the B.Indep flag and always
+                # keeps history (SURVEY.md §2); tolerate streams whose
+                # flag lies by demoting the frame to linked chains.
+                frame_crosses = min_reach < span.out_lo
+            chunks.append((starts, ll, ls, ml, mo))
+            n_out += total
+            if n_out > _BATCH_MAX_OUT:
+                raise BatchCapacityExceeded(n_out)
+            n_seq += ll.size
+            span.seq_hi = n_seq
+            span.out_hi = n_out
+            spans.append(span)
+        if frame_crosses:
+            for s in spans[frame_span_lo:]:
+                s.independent = False
+        frame_bounds[frame.frame_id + 1] = n_out
+
+        # Content size accounting (reference: lz4ada.adb:469-476,
+        # 826-839).
+        if frame.content_size is not None:
+            produced = n_out - frame_start_out
+            if produced > frame.content_size:
+                raise err_content_size_exceeded()
+            if produced < frame.content_size:
+                raise err_content_size_leftover(frame.content_size - produced)
+
+    if chunks:
+        cols = [np.concatenate([c[i] for c in chunks]) for i in range(5)]
+    else:
+        cols = [np.zeros(0, np.int32) for _ in range(5)]
+    np.maximum(cols[4], 1, out=cols[4])
+    return SeqTable(
+        out_start=cols[0],
+        lit_len=cols[1],
+        lit_src=cols[2],
+        match_len=cols[3],
+        match_off=cols[4],
+        n_out=n_out,
+        frame_out_start=np.array(frame_bounds, np.int64),
+        spans=spans,
+    )
+
+
+def _verify_checksums(
+    buf: np.ndarray, parsed: ParseResult, out: np.ndarray, table: SeqTable
+) -> None:
+    """Block + content checksum verification on the host (native
+    xxh32); :func:`_verify_checksums_device` is the device form."""
+    from . import native
+
+    for frame in parsed.frames:
+        for blk in frame.blocks:
+            if blk.checksum is not None:
+                payload = buf[blk.comp_off:blk.comp_off + blk.comp_len]
+                computed = native.native_xxh32(payload)
+                if computed != blk.checksum:
+                    raise err_block_checksum(blk.checksum, computed)
+        if frame.content_checksum is not None:
+            lo = int(table.frame_out_start[frame.frame_id])
+            hi = int(table.frame_out_start[frame.frame_id + 1])
+            computed = native.native_xxh32(out[lo:hi])
+            if computed != frame.content_checksum:
+                raise err_content_checksum(computed, frame.content_checksum)
+
+
+def _chains_of(table: SeqTable) -> list[BlockSpan]:
+    """Group block spans into decode chains: independent blocks stand
+    alone; linked blocks of a frame merge into one sequential chain."""
+    chains: list[BlockSpan] = []
+    for span in table.spans:
+        if (
+            chains
+            and not span.independent
+            and chains[-1].frame_id == span.frame_id
+            and not chains[-1].independent
+        ):
+            chains[-1].seq_hi = span.seq_hi
+            chains[-1].out_hi = span.out_hi
+        else:
+            chains.append(dataclasses.replace(span))
+    return chains
+
+
+@dataclasses.dataclass
+class DecodePlan:
+    """Per-input decode plan: which engine handles which chain.
+
+    The classifier replaces the reference's single byte loop: the
+    format's own structure decides the engine —
+    * ``sparse``: few giant segments (zeros/RLE, incompressible,
+      uncompressed blocks) -> segment program at device-memory speed
+      (device/sparse_decode.py)
+    * ``fused``: many small sequences (text) -> fused expansion +
+      routing kernel (device/fused.py) — host work O(sequences)
+    * ``dense``: fused-budget overflows (dense in-substep references)
+      -> host-packed routing kernel (device/mxu2.py)
+    * ``pallas``/``resolve``: anything the fast paths decline
+      (oversized chains, pathological shapes)
+    """
+
+    sparse: list         # [(chain, SparseProgram)]
+    dense_chains: list   # [chain]
+    dense_pack: object   # DensePack2 | None
+    other: list          # [chain] -> segment kernel / resolver
+    fused_chains: list = dataclasses.field(default_factory=list)
+    fused_prep: object = None   # device.fused.FusedPrep | None
+
+
+_SPARSE_MAX_SEQS = 512
+# Fused-engine chain cap: prep ships ~3 B of records per output byte
+# (seq records + patches + windows, padding included), so giant chains
+# would hold multi-GB host/device transients; beyond the cap the part-wise
+# host-pack engine (mxu2) takes over.
+_FUSED_MAX_CHAIN_OUT = 64 << 20
+# Chain-size cap for the dense packer: the native resolver's host
+# transient is the 4 B/byte code array (device memory stays bounded by
+# part-wise launches, mxu2.PART_SUBS).
+_DENSE_MAX_CHAIN_OUT = 1 << 30
 
 
 def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
@@ -131,26 +532,148 @@ def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
     return plan
 
 
+def _verify_checksums_device(
+    buf: np.ndarray, parsed: ParseResult, out_dev: torch.Tensor,
+    table: SeqTable, comp_dev: torch.Tensor | None = None,
+) -> None:
+    """Checksum verification for device-resident output: content
+    checksums cover decoded output and run as the xxh32 stream kernel
+    over the device tensor; only lane states and stripe tails cross to
+    the host.  Block checksums cover the COMPRESSED bytes: when the
+    caller already staged them on the device (``comp_dev``), the
+    batched per-block kernel hashes every block of a frame in one
+    launch (``xxh32_blocks_device``); otherwise they run on the native
+    engine over the host-resident buffer (faster than shipping bytes to
+    hash them)."""
+    from . import native
+    from .device.xxh32_cuda import xxh32_blocks_device, xxh32_of_device_array
+
+    # Frames verify IN ORDER, each frame's block checksums before its
+    # content checksum: the same fault precedence as the host path and
+    # the streaming reference (lz4ada.adb:672-676 runs per block inside
+    # the frame, adb:491-513 at its end mark), so multi-fault inputs
+    # raise the same error regardless of verify= mode.
+    for frame in parsed.frames:
+        blks = [b for b in frame.blocks if b.checksum is not None]
+        if blks and comp_dev is not None:
+            digests = xxh32_blocks_device(
+                comp_dev,
+                [b.comp_off for b in blks],
+                [b.comp_len for b in blks],
+            )
+            for blk, computed in zip(blks, digests):
+                if computed != blk.checksum:
+                    raise err_block_checksum(blk.checksum, computed)
+        else:
+            for blk in blks:
+                payload = buf[blk.comp_off:blk.comp_off + blk.comp_len]
+                computed = native.native_xxh32(payload)
+                if computed != blk.checksum:
+                    raise err_block_checksum(blk.checksum, computed)
+        if frame.content_checksum is not None:
+            lo = int(table.frame_out_start[frame.frame_id])
+            hi = int(table.frame_out_start[frame.frame_id + 1])
+            computed = xxh32_of_device_array(out_dev, lo, hi)
+            if computed != frame.content_checksum:
+                raise err_content_checksum(computed, frame.content_checksum)
+
+
+def _segment_tables(parsed: ParseResult, table: SeqTable,
+                    chains: list) -> tuple[list, list]:
+    """What ``lz4tpu.pipeline._decode_pallas`` hands its kernel, per
+    chain: ``cols[k]`` (chain-local ``dst``, ``lit_src`` relative to
+    the frame's start, ``lit_len``, ``match_off``, ``match_len``) and
+    ``rows[k] = (n_seqs, frame start, output base, n_out)`` with the
+    chains' outputs packed end to end."""
+    cols, rows, out_base = [], [], 0
+    for chain in chains:
+        fr = parsed.frames[chain.frame_id]
+        sl = slice(chain.seq_lo, chain.seq_hi)
+        cols.append((
+            (table.out_start[sl] - chain.out_lo).astype(np.int32),
+            (table.lit_src[sl] - fr.start).astype(np.int32),
+            table.lit_len[sl], table.match_off[sl], table.match_len[sl],
+        ))
+        n_loc = chain.out_hi - chain.out_lo
+        rows.append((chain.seq_hi - chain.seq_lo, fr.start, out_base, n_loc))
+        out_base += n_loc
+    return cols, rows
+
+
+def _segment_chains(parsed: ParseResult, table: SeqTable, chains: list,
+                    comp_dev: torch.Tensor) -> list:
+    """Decode ``chains`` through the segment-copy kernel, one chain per
+    thread block in one launch: ``[(out_lo, uint8 tensor)]``."""
+    from .device import segment_decode as sg
+
+    chains = [c for c in chains if c.out_hi > c.out_lo]
+    if not chains:
+        return []
+    cols, rows = _segment_tables(parsed, table, chains)
+    out = sg.decode_chains_device(comp_dev, cols, rows)
+    return [(chain.out_lo, out[base:base + n])
+            for chain, (_s, _c, base, n) in zip(chains, rows)]
+
+
+def _decode_pallas(buf: np.ndarray, parsed: ParseResult, table: SeqTable,
+                   dev: torch.device) -> np.ndarray:
+    """Chain-wise decode through the segment-copy kernel."""
+    segs = _segment_chains(parsed, table, _chains_of(table),
+                           to_device(buf, dev))
+    return assemble_device_segments(segs, table.n_out, dev).cpu().numpy()
+
+
+def _decode_via_plan(buf: np.ndarray, parsed: ParseResult, table: SeqTable,
+                     plan: DecodePlan, dev: torch.device) -> np.ndarray:
+    """Run a DecodePlan and fetch the assembled output to the host;
+    stragglers (``plan.other``) go through the segment-copy kernel."""
+    comp_dev = to_device(buf, dev) if plan.sparse or plan.other else None
+    segs = build_device_segments(
+        buf, table, dataclasses.replace(plan, other=[]), dev,
+        comp_dev=comp_dev)
+    segs += _segment_chains(parsed, table, plan.other, comp_dev)
+    return assemble_device_segments(segs, table.n_out, dev).cpu().numpy()
+
+
+def _resolve_chain(buf: np.ndarray, table: SeqTable, chain,
+                   comp_dev: torch.Tensor) -> torch.Tensor:
+    """Byte-parallel resolver for one chain; the decoded bytes stay on
+    ``comp_dev``'s device."""
+    from .device import decode as dr
+
+    dev = comp_dev.device
+    sl = slice(chain.seq_lo, chain.seq_hi)
+    n_loc = chain.out_hi - chain.out_lo
+    produces = (table.lit_len[sl] + table.match_len[sl]) > 0
+    return dr.resolve_sources(
+        comp_dev,
+        to_device((table.out_start[sl] - chain.out_lo).astype(np.int32),
+                  dev),
+        to_device(table.lit_len[sl], dev),
+        to_device(table.lit_src[sl], dev),
+        to_device(table.match_off[sl], dev),
+        to_device(produces, dev),
+        n_real=n_loc, n_out=n_loc,
+        n_seqs=chain.seq_hi - chain.seq_lo,
+    )
+
+
 def build_device_segments(buf: np.ndarray, table: SeqTable,
                           plan: DecodePlan, device,
                           comp_dev: torch.Tensor | None = None) -> list:
     """Execute a DecodePlan on ``device``: ``[(out_lo, uint8 tensor of
     exactly the chain's length)]``.  ``comp_dev``: the compressed
-    buffer already staged on ``device``, reused by sparse programs."""
-    if plan.other:
-        raise NotImplementedError(
-            "lz4tpu_torch: chains over 1 GiB go to the byte-parallel "
-            "resolver (lz4tpu/device/decode.py), which is not ported yet")
+    buffer already staged on ``device``, reused by the sparse programs
+    and the resolver."""
     dev = torch.device(device)
     segs: list = []
-    if plan.sparse:
-        if comp_dev is None:
-            comp_dev = to_device(buf, dev)
-        for chain, prog in plan.sparse:
-            n_c = chain.out_hi - chain.out_lo
-            segs.append(
-                (chain.out_lo, sp.decode_sparse_device(prog, comp_dev)[:n_c])
-            )
+    if (plan.sparse or plan.other) and comp_dev is None:
+        comp_dev = to_device(buf, dev)
+    for chain, prog in plan.sparse:
+        n_c = chain.out_hi - chain.out_lo
+        segs.append(
+            (chain.out_lo, sp.decode_sparse_device(prog, comp_dev)[:n_c])
+        )
     for rows_of, prep, chains, sub in (
         (mx.decode_dense2_rows, plan.dense_pack, plan.dense_chains, mx.SUB),
         (fu.decode_fused_rows, plan.fused_prep, plan.fused_chains, fu.SUB),
@@ -160,6 +683,9 @@ def build_device_segments(buf: np.ndarray, table: SeqTable,
         flat, _ring = rows_of(prep, dev)
         for chain, (_c, slo, _shi, out_len) in zip(chains, prep.out_spans):
             segs.append((chain.out_lo, flat[slo * sub: slo * sub + out_len]))
+    for chain in plan.other:
+        segs.append((chain.out_lo,
+                     _resolve_chain(buf, table, chain, comp_dev)))
     return segs
 
 
@@ -179,8 +705,8 @@ def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "lz4tpu_torch.decompress_to_device: device='cuda' but CUDA is "
-            "not available; pass device='cpu' for the plain PyTorch path")
+            "lz4tpu_torch: device='cuda' but CUDA is not available; pass "
+            "device='cpu' for the plain PyTorch path")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
@@ -198,15 +724,20 @@ def decompress_to_device(
     """Decode a whole buffer into a uint8 tensor on ``device``.
 
     The contract of ``lz4tpu.decompress_to_device``: exactly the decoded
-    bytes, the same exceptions (class and message) for the same input.
-    ``device`` is explicit: ``"cuda"`` (the default) runs the kernels
-    and raises when CUDA is absent; ``"cpu"`` runs their plain PyTorch
-    versions.
+    bytes, the same exceptions (class name and message) for the same
+    input.  ``device`` is explicit: ``"cuda"`` (the default) runs the
+    kernels and raises when CUDA is absent; ``"cpu"`` runs their plain
+    PyTorch versions.
 
     verify: ``"host"`` copies the output to the host and checks block
-    and content checksums there; ``"none"`` skips the checksums (frame
-    structure and sequence grammar are still validated host-side);
-    ``"device"`` is not ported yet.
+    and content checksums there; ``"device"`` stages the compressed
+    buffer once and verifies everything on the device (block checksums
+    through the batched per-block xxh32 kernel, content checksums
+    through the stream kernel over the device-resident output: decoded
+    bytes never cross to the host, only lane states and sub-stripe
+    tails), frame by frame in reference fault order; ``"none"`` skips
+    the checksums (frame structure and sequence grammar are still
+    validated host-side).
 
     out: optional caller 1-D uint8 tensor on ``device``; the decoded
     bytes are copied in place into ``out[:n]`` (the rest is left as it
@@ -217,10 +748,6 @@ def decompress_to_device(
     (``pipelined=True`` or ``LZ4TPU_PIPELINE=1``) is not ported yet.
     """
     dev = _resolve_device(device)
-    if verify == "device":
-        raise NotImplementedError(
-            "lz4tpu_torch: verify='device' needs the xxh32 kernels "
-            "(lz4tpu/device/xxh32_pallas.py), which are not ported yet")
     if pipelined is None:
         pipelined = os.environ.get("LZ4TPU_PIPELINE", "0") == "1"
     if pipelined:
@@ -234,7 +761,7 @@ def decompress_to_device(
         # stream-order fault precedence: the streaming engine
         # re-derives the diagnostic; if it succeeds (batch-only
         # structural limitation) stage its bytes instead
-        from lz4tpu.api import decompress_host
+        from .api import decompress_host
 
         res = to_device(
             np.frombuffer(decompress_host(data, reservation), np.uint8), dev)
@@ -275,9 +802,125 @@ def _decompress_to_device_batch(data, reservation, dev: torch.device,
         ) from e
     if table.n_out == 0:
         return torch.zeros(0, dtype=torch.uint8, device=dev)
+    comp_dev = None
+    if verify == "device" and any(
+        blk.checksum is not None
+        for frame in parsed.frames
+        for blk in frame.blocks
+    ):
+        # stage once: the batched per-block xxh32 kernel hashes the
+        # compressed bytes on the device, and sparse programs reuse it
+        comp_dev = to_device(buf, dev)
     segs = build_device_segments(
-        buf, table, plan_decode(buf, parsed, table), dev)
+        buf, table, plan_decode(buf, parsed, table), dev, comp_dev=comp_dev)
     out_dev = assemble_device_segments(segs, table.n_out, dev)
     if verify == "host":
         _verify_checksums(buf, parsed, out_dev.cpu().numpy(), table)
+    elif verify == "device":
+        _verify_checksums_device(buf, parsed, out_dev, table,
+                                 comp_dev=comp_dev)
     return out_dev
+
+
+def decompress_device(
+    data,
+    reservation: Reservation = FOR_ALL,
+    engine: str = "auto",
+    *,
+    device="cuda",
+    stats: DecodeStats | None = None,
+) -> bytes:
+    """Decode a whole buffer via the device pipeline; returns bytes.
+
+    engine: "auto" (classifier mix: sparse program / fused kernel /
+    mxu2 kernel / segment kernel, see DecodePlan), "pallas" (the
+    segment-copy kernel, chain-wise; the name is the JAX package's) or
+    "resolve" (byte-parallel resolver).
+
+    Fault precedence: the batch pipeline parses the whole frame
+    structure before verifying checksums, so one corruption that
+    creates BOTH an early checksum fault and a later structural fault
+    would surface the wrong one (the reference reports stream order:
+    lz4ada.adb:661-714 verifies each block's trailer as it reaches
+    it).  Any Lz4Error therefore re-derives the diagnostic via the
+    streaming host engine, the same contract as decompress_host's
+    batch-to-streaming fallback.
+    """
+    dev = _resolve_device(device)
+    try:
+        return _decompress_device_batch(data, reservation, engine, dev,
+                                        stats)
+    except Lz4Error:
+        from .api import decompress_host
+
+        return decompress_host(data, reservation)
+
+
+def _decompress_device_batch(
+    data,
+    reservation: Reservation,
+    engine: str,
+    dev: torch.device,
+    stats: DecodeStats | None,
+) -> bytes:
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    if buf.size == 0:
+        return b""
+    t0 = time.perf_counter()
+    parsed = parse_frames(buf, reservation)
+    t1 = time.perf_counter()
+    try:
+        table = build_seq_table(buf, parsed, reservation, data,
+                                pooled_cols=True)
+    except BatchCapacityExceeded:
+        # stream decodes past int32 coordinates: the size-unbounded
+        # streaming host engine takes over
+        from .api import decompress_host
+
+        return decompress_host(data, reservation)
+    t2 = time.perf_counter()
+    if stats is not None:
+        stats.comp_bytes = buf.size
+        stats.out_bytes = table.n_out
+        stats.n_frames = len(parsed.frames)
+        stats.n_blocks = sum(len(f.blocks) for f in parsed.frames)
+        stats.n_seqs = int(table.out_start.size)
+        stats.parse_s = t1 - t0
+        stats.scan_s = t2 - t1
+    if table.n_out == 0:
+        return b""
+
+    if engine == "auto":
+        plan = plan_decode(buf, parsed, table, stats)
+        t3 = time.perf_counter()
+        # the fetch to the host inside synchronises the device, so the
+        # host clock below covers the device work
+        out_np = _decode_via_plan(buf, parsed, table, plan, dev)
+        t4 = time.perf_counter()
+        _verify_checksums(buf, parsed, out_np, table)
+        if stats is not None:
+            stats.plan_s = t3 - t2
+            stats.device_s = t4 - t3
+            stats.verify_s = time.perf_counter() - t4
+        return out_np.tobytes()
+    if engine == "pallas":
+        out_np = _decode_pallas(buf, parsed, table, dev)
+        _verify_checksums(buf, parsed, out_np, table)
+        return out_np.tobytes()
+
+    from .device import decode as dr
+
+    produces = (table.lit_len + table.match_len) > 0
+    out_np = dr.resolve_sources(
+        to_device(buf, dev),
+        to_device(table.out_start, dev),
+        to_device(table.lit_len, dev),
+        to_device(table.lit_src, dev),
+        to_device(table.match_off, dev),
+        to_device(produces, dev),
+        n_real=table.n_out,
+        n_out=table.n_out,
+        n_seqs=table.out_start.size,
+    ).cpu().numpy()
+    _verify_checksums(buf, parsed, out_np, table)
+    return out_np.tobytes()

@@ -222,3 +222,29 @@ def test_empty_prep():
     })
     rows, ring = tfu.decode_fused_rows(prep, "cpu")
     assert rows.numel() == 0 and ring.shape == (65536,)
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero_ring", "seeded"])
+def test_decode_split_matches_jax_split_kernels(seeded):
+    """The port's two-launch decode against the JAX package's expansion
+    and routing kernels (``_decode_split_device``, interpret mode): rows
+    and final ring, from a zero ring and from a seeded one."""
+    blob, prep_t, prep_j = _single(48 << 10, seed=21)
+    n = prep_j.n_sub
+    seed = np.random.default_rng(4).integers(0, 256, 65536, dtype=np.uint8)
+    ring_j = (jnp.asarray(seed.reshape(256, 256).astype(np.float32),
+                          jnp.bfloat16) if seeded else None)
+    rows_j, ring_out_j = jfu._decode_split_device(
+        *(jnp.asarray(x) for x in (prep_j.seqrec, prep_j.lits, prep_j.winq,
+                                   prep_j.scal, prep_j.patch)),
+        ring_j, n_sub=n, interpret=True)
+    rows_t, ring_out_t = tfu.decode_split(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in (
+            prep_t.seqrec, prep_t.lits, prep_t.winq, prep_t.scal,
+            prep_t.patch)),
+        torch.from_numpy(seed.copy()) if seeded else None, n_sub=n)
+    flat_j = np.asarray(jax.device_get(rows_j)).reshape(-1)
+    assert rows_t.dtype == torch.uint8 and rows_t.shape == (n * tfu.SUB,)
+    assert np.array_equal(rows_t.numpy(), flat_j)
+    assert torch.equal(ring_out_t, ring_from_jax(ring_out_j))
+    assert rows_t.numpy()[:len(blob)].tobytes() == blob

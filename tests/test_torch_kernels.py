@@ -10,15 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-import lz4tpu
-import lz4tpu.pipeline as jpl
 import lz4tpu_torch
-from lz4tpu import FOR_ALL
-from lz4tpu.device import fused as jfu
-from lz4tpu_torch import _kernels
+import lz4tpu_torch.pipeline as tpl
+from lz4tpu_torch import FOR_ALL, _kernels, native
 from lz4tpu_torch.device import fused as tfu
 from lz4tpu_torch.device import mxu2 as tmx
+from lz4tpu_torch.device import segment_decode as tsg
 from lz4tpu_torch.device import sparse_decode as tsp
+from lz4tpu_torch.device import xxh32_cuda as txx
 from lz4tpu_torch.device.ring import part_segments, segments_tensor
 
 pytestmark = pytest.mark.cuda
@@ -40,14 +39,14 @@ def _frag_text(n: int, seed: int) -> bytes:
 
 def _src_text(n: int) -> bytes:
     return b"".join(open(m.__file__, "rb").read()
-                    for m in (jfu, jpl, lz4tpu.api))[:n]
+                    for m in (tfu, tpl, lz4tpu_torch.api, tsp, tmx))[:n]
 
 
 def _table(data):
     buf = np.frombuffer(data, np.uint8)
-    t = jpl.build_seq_table(buf, jpl.parse_frames(buf, FOR_ALL), FOR_ALL,
+    t = tpl.build_seq_table(buf, tpl.parse_frames(buf, FOR_ALL), FOR_ALL,
                             data)
-    ranges = [(c.seq_lo, c.seq_hi) for c in jpl._chains_of(t)]
+    ranges = [(c.seq_lo, c.seq_hi) for c in tpl._chains_of(t)]
     return (t.lit_len, t.match_len, t.match_off, t.lit_src, buf), ranges
 
 
@@ -64,7 +63,7 @@ def test_block_fill_kernel(cuda):
 def test_fused_kernels(cuda, independent, part_subs):
     kw = dict(block_max_code=4, block_independence=True) if independent \
         else {}
-    cols, ranges = _table(lz4tpu.compress(_frag_text(600_000, 11), **kw))
+    cols, ranges = _table(lz4tpu_torch.compress(_frag_text(600_000, 11), **kw))
     prep = tfu.prep_fused(*cols, chain_ranges=ranges, pooled=False)
     rng = np.random.default_rng(1)
     seed = torch.from_numpy(rng.integers(0, 256, 65536, dtype=np.uint8))
@@ -88,7 +87,7 @@ def test_fused_kernels(cuda, independent, part_subs):
 def test_mxu2_kernel(cuda, independent):
     kw = dict(block_max_code=4, block_independence=True) if independent \
         else {}
-    cols, ranges = _table(lz4tpu.compress(_src_text(300_000), **kw))
+    cols, ranges = _table(lz4tpu_torch.compress(_src_text(300_000), **kw))
     pack = tmx.pack_dense2(*cols, chain_ranges=ranges)
     segs = part_segments(pack.out_spans, 0, pack.n_sub, False)
     code, scal = torch.from_numpy(pack.code), torch.from_numpy(pack.scal)
@@ -107,7 +106,7 @@ def test_decompress_to_device_on_card(cuda, kind):
     counter = {"zeros": "block_fill", "fused": "fused_route",
                "mxu2": "mxu2_route"}[kind]
     n0 = _kernels.LAUNCHES[counter]
-    out = lz4tpu_torch.decompress_to_device(lz4tpu.compress(blob))
+    out = lz4tpu_torch.decompress_to_device(lz4tpu_torch.compress(blob))
     assert out.is_cuda
     assert out.cpu().numpy().tobytes() == blob
     assert _kernels.LAUNCHES[counter] > n0
@@ -125,7 +124,7 @@ def test_card_equals_plain_on_mixed_frames(cuda, seed):
                           np.uint8).tobytes()]
     order = rng.permutation(len(parts))
     blob = b"".join(parts[i] for i in order)
-    data = lz4tpu.compress(blob, block_max_code=int(rng.integers(4, 8)),
+    data = lz4tpu_torch.compress(blob, block_max_code=int(rng.integers(4, 8)),
                            block_independence=bool(rng.integers(0, 2)))
     out = lz4tpu_torch.decompress_to_device(data)
     plain = lz4tpu_torch.decompress_to_device(data, device="cpu")
@@ -138,3 +137,116 @@ def test_kernel_rejects_cpu_mix(cuda):
         tmx.route(torch.zeros((1, 2048), dtype=torch.int32, device=cuda),
                   torch.zeros((1, 1), dtype=torch.int32),
                   torch.zeros((1, 3), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("lo,n", [(0, 16), (1, 4096), (13, 70_001 - 13),
+                                  (3, 16 * 1024 + 5), (16, 16 * 2049)])
+def test_xxh32_stream_kernel(cuda, lo, n):
+    rng = np.random.default_rng(5)
+    data = torch.from_numpy(rng.integers(0, 256, 70_001, dtype=np.uint8))
+    seed = txx.seed_state("cpu")
+    n0 = _kernels.LAUNCHES["xxh32_stream"]
+    got = txx.xxh32_stream(data.to(cuda), lo, n // 16, seed.to(cuda))
+    assert _kernels.LAUNCHES["xxh32_stream"] == n0 + 1
+    assert torch.equal(got.cpu(),
+                       txx.xxh32_stream_plain(data, lo, n // 16, seed))
+    # carried state: two launches equal one
+    half = (n // 16) // 2
+    mid = txx.xxh32_stream(data.to(cuda), lo, half, seed.to(cuda))
+    two = txx.xxh32_stream(data.to(cuda), lo + 16 * half, n // 16 - half,
+                           mid)
+    assert torch.equal(two, got)
+    assert (txx.xxh32_of_device_array(data.to(cuda), lo, lo + n)
+            == native.native_xxh32(data.numpy()[lo:lo + n]))
+
+
+def test_xxh32_blocks_kernel(cuda):
+    rng = np.random.default_rng(6)
+    data = torch.from_numpy(rng.integers(0, 256, 200_000, dtype=np.uint8))
+    offs = [0, 7, 1001, 30_000, 99_999, 199_990, 5]
+    lens = [3, 15, 4099, 40_001, 16 * 1024, 10, 0]
+    ot, lt_ = torch.tensor(offs), torch.tensor(lens)
+    n0 = _kernels.LAUNCHES["xxh32_blocks"]
+    got = txx.xxh32_blocks(data.to(cuda), ot.to(cuda), lt_.to(cuda))
+    assert _kernels.LAUNCHES["xxh32_blocks"] == n0 + 1
+    assert torch.equal(got.cpu(), txx.xxh32_blocks_plain(data, ot, lt_))
+    assert (txx.xxh32_blocks_device(data.to(cuda), offs, lens)
+            == [native.native_xxh32(data.numpy()[o:o + n])
+                for o, n in zip(offs, lens)])
+
+
+@pytest.mark.parametrize("kind", ["text", "zeros", "p3", "indep", "stored"])
+def test_segment_decode_kernel(cuda, kind):
+    blob, kw = {
+        "text": (_src_text(150_000), {}),
+        "zeros": (bytes(300_000) + b"tail", {}),
+        "p3": (b"abc" * 30_000 + b"x" + b"ab" * 5000, {}),
+        "indep": (_frag_text(400_000, 8),
+                  dict(block_max_code=4, block_independence=True)),
+        "stored": (np.random.default_rng(2).integers(
+            0, 256, 100_000, dtype=np.uint8).tobytes(), {}),
+    }[kind]
+    data = lz4tpu_torch.compress(blob, **kw)
+    buf = np.frombuffer(data, np.uint8)
+    parsed = tpl.parse_frames(buf, FOR_ALL)
+    table = tpl.build_seq_table(buf, parsed, FOR_ALL, data)
+    chains = [c for c in tpl._chains_of(table) if c.out_hi > c.out_lo]
+    cols, rows = tpl._segment_tables(parsed, table, chains)
+    comp = torch.from_numpy(buf.copy())
+    seqs, ch, total = tsg.pack_chains(cols, rows, buf.size, "cpu")
+    n0 = _kernels.LAUNCHES["segment_decode"]
+    got = tsg.segment_decode(comp.to(cuda), seqs.to(cuda), ch.to(cuda), total)
+    assert _kernels.LAUNCHES["segment_decode"] == n0 + 1
+    assert got.cpu().numpy().tobytes() == blob
+    if kind != "text":      # the plain loop is slow on many sequences
+        assert torch.equal(got.cpu(),
+                           tsg.segment_decode_plain(comp, seqs, ch, total))
+
+
+def test_segment_decode_clears_what_no_sequence_writes(cuda):
+    lits = np.arange(40, dtype=np.uint8)
+    cols = [np.array(c, np.int32) for c in
+            ([0, 30], [0, 8], [8, 4], [3, 0], [12, 0])]
+    assert not tsg.covers([cols], [(2, 0, 0, 50)])
+    got = tsg.decode_chain_device(lits, *cols, 50, device=cuda).cpu()
+    want = tsg.decode_chain_device(lits, *cols, 50, device="cpu")
+    assert torch.equal(got, want)
+    assert not got[20:30].any() and not got[34:].any() and got[19] != 0
+
+
+@pytest.mark.parametrize("engine", ["auto", "pallas", "resolve"])
+def test_decompress_device_on_card(cuda, engine):
+    blob = _frag_text(300_000, 9) + bytes(100_000) + _src_text(100_000)
+    data = lz4tpu_torch.compress(blob, block_checksum=True, block_max_code=5)
+    assert lz4tpu_torch.decompress_device(data, engine=engine) == blob
+    assert lz4tpu_torch.decompress(data, backend="device") == blob
+
+
+def test_verify_device_on_card(cuda):
+    blob = _frag_text(300_000, 10)
+    data = lz4tpu_torch.compress(blob, block_checksum=True, block_max_code=4)
+    before = dict(_kernels.LAUNCHES)
+    out = lz4tpu_torch.decompress_to_device(data, verify="device")
+    assert out.cpu().numpy().tobytes() == blob
+    assert _kernels.LAUNCHES["xxh32_blocks"] == before["xxh32_blocks"] + 1
+    assert _kernels.LAUNCHES["xxh32_stream"] == before["xxh32_stream"] + 1
+    for at in (300, len(data) - 1):
+        bad = bytearray(data)
+        bad[at] ^= 0x10
+        with pytest.raises(lz4tpu_torch.ChecksumError) as ed:
+            lz4tpu_torch.decompress_to_device(bytes(bad), verify="device")
+        with pytest.raises(lz4tpu_torch.ChecksumError) as eh:
+            lz4tpu_torch.decompress_host(bytes(bad))
+        assert str(ed.value) == str(eh.value)
+
+
+def test_decode_split_on_card(cuda):
+    cols, ranges = _table(lz4tpu_torch.compress(_frag_text(300_000, 12)))
+    prep = tfu.prep_fused(*cols, chain_ranges=ranges, pooled=False)
+    n = prep.n_sub
+    args = [torch.from_numpy(np.ascontiguousarray(getattr(prep, k)))
+            for k in ("seqrec", "lits", "winq", "scal", "patch")]
+    rows_k, ring_k = tfu.decode_split(*(a.to(cuda) for a in args), n_sub=n)
+    rows_p, ring_p = tfu.decode_split(*args, n_sub=n)
+    assert torch.equal(rows_k.cpu(), rows_p)
+    assert torch.equal(ring_k.cpu(), ring_p)
