@@ -14,14 +14,21 @@ g++:  ``python3 chip_smoke.py``.  It
    kernels must equal the native host hash and the segment kernel the
    original bytes.  Kernels are timed with CUDA events, and each gets
    the least time the card could take for the same work (its bound);
-4. drives three paths over seeded in-process corpora, the launch
+4. drives six paths over seeded in-process corpora, the launch
    counters set to 0 before each and read after it:
    ``decompress_to_device(verify="host")``,
-   ``decompress_to_device(verify="device")`` and ``decompress_device``
+   ``decompress_to_device(verify="device")``, ``decompress_device``
    (engines auto / pallas / resolve, and ``decompress(backend=
-   "device")``), requiring the original bytes, the planned engines and
-   the kernels each path must launch; then times ``verify="host"``
-   against ``verify="device"`` end to end in alternating turns;
+   "device")``), the A/B harness of the mxu2 route variants
+   (``lz4tpu_torch.exp.ab``, short setting),
+   ``decompress_to_device(pipelined=True)`` and one
+   ``DecodeSession(max_inflight=4)`` answering every corpus three ways,
+   requiring the original bytes, the planned engines and the kernels
+   each path must launch; then times ``verify="host"`` against
+   ``verify="device"``, pipelined against monolithic, and the session
+   against a serial loop (with the serial host-stage rate beside them)
+   end to end in alternating turns, and pinned staging against the
+   pageable copy;
 5. checks that corrupted frames raise what
    ``lz4tpu_torch.decompress_host`` raises, under both verify modes;
 6. times the device content checksum against a fetch and the native
@@ -61,9 +68,12 @@ KERNELS = {      # name -> (source, TPU kernel it replaces)
                      "lz4tpu/device/xxh32_pallas.py:278"),
     "segment_decode": ("lz4tpu_torch/csrc/segment.cu",
                        "lz4tpu/device/pallas_decode.py:162"),
+    "mxu2_route_ab": ("lz4tpu_torch/csrc/mxu2_ab.cu", "exp/ab.py:34"),
 }
 ENGINE_KERNELS = {"fused": ("fused_expand", "fused_route"),
                   "dense": ("mxu2_route",)}
+SERVED = ("z9m", "b3.5m", "frag1m", "src1m", "frag32m", "frag32m-indep",
+          "frag2m-bsum", "frag2m-legacy")
 
 
 # The xxh32 chain alone: n_rounds dependent lane updates in registers, no
@@ -277,6 +287,7 @@ def kernel_phase(torch, np, lt, tpl, corp, dev, name_card, probe):
     from lz4tpu_torch.device import to_device
     from lz4tpu_torch.device import xxh32_cuda as xx
     from lz4tpu_torch.device.ring import part_segments, segments_tensor
+    from lz4tpu_torch.exp import ab
 
     rows = {}
 
@@ -357,6 +368,55 @@ def kernel_phase(torch, np, lt, tpl, corp, dev, name_card, probe):
            cuda_ms(torch, lambda: mx.route_plain(code, scal, segs), 2),
            1e3 * nbytes(code, scal, segs, out_k, ring_k) / HBM_BYTES_PER_S,
            "bytes", f"src1m, {pack.n_sub} substeps")
+
+    # H7: every exact variant against plain on 200 KB with a seeded ring
+    # (the ring wraps three times), then on src1m against the original
+    # bytes; sub 2048 also against H3's rows
+    data, blob = corp["src1m"][0], corp["src1m"][1]
+    small = blob[:200_000]
+    small_data = lt.compress(small)
+    ring_in = torch.from_numpy(np.random.default_rng(31).integers(
+        0, 256, 65536, dtype=np.uint8)).to(dev)
+    err = 0
+    for sub in ab.SUBS:
+        code_s = to_device(ab.pack_host(small_data, sub)[0], dev)
+        rows_p, ring_p = ab.route_variant_plain(code_s, sub, ring_in)
+        code_f = to_device(ab.pack_host(data, sub)[0], dev)
+        for variant in ab.EXACT:
+            rows_k, ring_k = ab.route_variant(code_s, sub, ring_in, variant)
+            torch.cuda.synchronize()
+            need(torch.equal(ring_k, ring_p),
+                 f"mxu2_route_ab sub={sub} {variant}: ring_out differs")
+            err = max(err, max_abs_err(torch, rows_k, rows_p))
+            need(rows_k[:len(small)].cpu().numpy().tobytes() == small,
+                 f"mxu2_route_ab sub={sub} {variant}: 200 KB differ from "
+                 "the original")
+            full, _ring = ab.route_variant(code_f, sub, None, variant)
+            torch.cuda.synchronize()
+            need(full[:len(blob)].cpu().numpy().tobytes() == blob,
+                 f"mxu2_route_ab sub={sub} {variant}: src1m differs from "
+                 "the original")
+            if sub == mx.SUB:
+                need(torch.equal(full, out_k),
+                     f"mxu2_route_ab sub=2048 {variant} differs from "
+                     "mxu2_route")
+            ms = cuda_ms(torch, lambda: ab.route_variant(
+                code_f, sub, None, variant), 20)
+            if (sub, variant) == (mx.SUB, "exact"):
+                ab_ms, ab_code, ab_out = ms, code_f, full
+                ab_plain_ms = cuda_ms(
+                    torch, lambda: ab.route_variant_plain(
+                        code_s, sub, ring_in), 1)
+                ab_plain_shape = (f"200 KB of src1m, {code_s.shape[0]} "
+                                  f"substeps of {sub}")
+            else:
+                print(f"[kernel] mxu2_route_ab sub={sub} {variant}: "
+                      f"{ms:.4f} ms on src1m, {code_f.shape[0]} substeps "
+                      f"[{name_card}]", flush=True)
+    record("mxu2_route_ab", err, ab_ms, ab_plain_ms,
+           1e3 * nbytes(ab_code, ab_out, ring_in) / HBM_BYTES_PER_S,
+           "bytes", f"src1m, {ab_code.shape[0]} substeps of {mx.SUB}, "
+           "variant exact", plain_shape=ab_plain_shape)
 
     # H2 on z9m: the block-fill plan's 18 blocks of 512 KiB
     _buf, _p, _t, plan, _st = plan_of(np, lt, tpl, corp["z9m"][0])
@@ -630,16 +690,12 @@ def verify_compare(torch, lt, corp, name_card, pairs=5):
     one run (the order alternates pair by pair): median and range."""
     for name in ("z9m", "frag1m", "frag32m", "frag32m-indep", "frag2m-bsum"):
         data = corp[name][0]
-        ms = {"host": [], "device": []}
-        for i in range(pairs):
-            for mode in (("host", "device"), ("device", "host"))[i % 2]:
-                s = time.perf_counter()
-                lt.decompress_to_device(data, device="cuda", verify=mode)
-                torch.cuda.synchronize()
-                ms[mode].append(1e3 * (time.perf_counter() - s))
+        ms = in_turns(torch, {
+            mode: (lambda m=mode: lt.decompress_to_device(
+                data, device="cuda", verify=m))
+            for mode in ("host", "device")}, pairs)
         print(f"[verify] {name}: " + " against ".join(
-            f"verify={mode!r} {statistics.median(t):.3f} ms "
-            f"({min(t):.3f}..{max(t):.3f})" for mode, t in ms.items())
+            f"verify={mode!r} {med_range(t)}" for mode, t in ms.items())
             + f" (median and range of {pairs}, in turns) [{name_card}]",
             flush=True)
 
@@ -699,6 +755,414 @@ def decompress_device_path(torch, np, lt, tpl, _kernels, corp, dev,
     print(f"[device] frag2m-bsum: decompress(backend='device') {ms:.3f} ms "
           f"[{name_card}]", flush=True)
     return dict(_kernels.LAUNCHES)
+
+
+def ab_path(torch, lt, _kernels, corp, name_card):
+    """The A/B harness of the mxu2 route variants (kernel H7), short
+    setting: every exact variant and every phase ablation on src1m."""
+    from lz4tpu_torch.exp import ab
+
+    _kernels.reset_launches()
+    data, blob = corp["src1m"][0], corp["src1m"][1]
+    lo, hi, rounds = 4, 16, 3
+    results = ab.run(data, blob, ab.DEFAULT_SPECS, lo=lo, hi=hi,
+                     rounds=rounds)
+    need(len(results) == len(ab.DEFAULT_SPECS)
+         and {r["sub"] for r in results if r["exact"]} == set(ab.SUBS),
+         "the harness did not time every exact substep size")
+    for r in results:
+        need(r["ms"] > 0, f"[ab] {r['name']}: no time measured")
+        print(f"[ab] {ab.format_row(r)} (chains of {lo} and {hi}, median "
+              f"of {rounds} rounds) [{name_card}]", flush=True)
+    return dict(_kernels.LAUNCHES)
+
+
+def in_turns(torch, fns, pairs=5):
+    """Host-clock ms of each fn() ended by a synchronise, in turns (the
+    order alternates pair by pair): name -> list."""
+    ms = {k: [] for k in fns}
+    names = list(fns)
+    for i in range(pairs):
+        for k in (names, names[::-1])[i % 2]:
+            s = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            ms[k].append(1e3 * (time.perf_counter() - s))
+    return ms
+
+
+def med_range(t) -> str:
+    return f"{statistics.median(t):.3f} ms ({min(t):.3f}..{max(t):.3f})"
+
+
+def pipelined_path(torch, np, lt, tpl, _kernels, corp, name_card):
+    """decompress_to_device(pipelined=True): one launch pair per
+    64-substep chunk on single fused chains, the monolithic plan on what
+    it does not fit; then pipelined against monolithic in turns, and
+    where the host's time goes inside one pipelined decode."""
+    from lz4tpu_torch import native
+    from lz4tpu_torch.device import fused as fu
+
+    _kernels.reset_launches()
+    for name in ("frag1m", "frag32m", "frag2m-legacy"):
+        data, blob = corp[name][0], corp[name][1]
+        n_chunks = -(-(-(-len(blob) // fu.SUB)) // fu.PIPE_SUBS)
+        for mode in ("host", "device"):
+            before = dict(_kernels.LAUNCHES)
+            res = lt.decompress_to_device(data, verify=mode, pipelined=True)
+            torch.cuda.synchronize()
+            need(res.cpu().numpy().tobytes() == blob,
+                 f"{name}: pipelined decode (verify={mode!r}) differs from "
+                 "the original")
+            ran = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+            need(ran["fused_expand"] == ran["fused_route"] == n_chunks,
+                 f"{name}: pipelined decode launched {ran['fused_expand']} "
+                 f"expand and {ran['fused_route']} route, expected "
+                 f"{n_chunks} each")
+        print(f"[pipelined] {name}: {len(blob)} B in {n_chunks} chunks of "
+              f"{fu.PIPE_SUBS} substeps, {n_chunks} launches each of "
+              "fused_expand and fused_route, original bytes under "
+              "verify='host' and 'device'", flush=True)
+    for name, kernel in (("z9m", "block_fill"), ("src1m", "mxu2_route")):
+        data, blob = corp[name][0], corp[name][1]
+        before = dict(_kernels.LAUNCHES)
+        res = lt.decompress_to_device(data, pipelined=True)
+        torch.cuda.synchronize()
+        need(res.cpu().numpy().tobytes() == blob,
+             f"{name}: pipelined=True differs from the original")
+        need(_kernels.LAUNCHES[kernel] == before[kernel] + 1,
+             f"{name}: pipelined=True did not fall back to the monolithic "
+             f"plan ({kernel})")
+        print(f"[pipelined] {name}: not a fused chain within budget, "
+              f"decoded by the monolithic plan ({kernel})", flush=True)
+    counts = dict(_kernels.LAUNCHES)
+    for name in ("frag1m", "frag32m"):
+        data = corp[name][0]
+        for mode in ("host", "none"):
+            ms = in_turns(torch, {
+                "pipelined": lambda: lt.decompress_to_device(
+                    data, verify=mode, pipelined=True),
+                "monolithic": lambda: lt.decompress_to_device(
+                    data, verify=mode, pipelined=False)})
+            print(f"[pipelined] {name} verify={mode!r}: " + " against ".join(
+                f"{k} {med_range(t)}" for k, t in ms.items())
+                + f" (median and range of 5, in turns) [{name_card}]",
+                flush=True)
+    # one pipelined decode of frag32m by hand, with the chunk stamps
+    data = corp["frag32m"][0]
+    buf = np.frombuffer(data, np.uint8)
+    table = tpl.build_seq_table(buf, tpl.parse_frames(buf, lt.FOR_ALL),
+                                lt.FOR_ALL, data, pooled_cols=True)
+    t0 = time.monotonic()
+    pre = native.prep_phase1(table.lit_len, table.match_len,
+                             table.match_off, table.lit_src, buf)
+    t1 = time.monotonic()
+    ctr = {}
+    fu.decode_fused_pipelined(
+        table.lit_len, table.match_len, table.match_off, table.lit_src,
+        buf, pre, device="cuda", counters=ctr)
+    t2 = time.monotonic()
+    torch.cuda.synchronize()
+    t3 = time.monotonic()
+    prep, disp = ctr["prep_done_t"], ctr["dispatch_t"]
+    range_prep = sum(p - d for p, d in zip(prep[1:], disp))
+    dispatch = sum(d - p for p, d in zip(prep, disp))
+    print(f"[pipelined] frag32m host time of one decode: phase 1 "
+          f"{1e3 * (t1 - t0):.3f} ms, set-up before the first chunk's "
+          f"prep ended {1e3 * (prep[0] - t1):.3f} ms, range prep of the "
+          f"other {len(prep) - 1} chunks {1e3 * range_prep:.3f} ms, staging "
+          f"and launches {1e3 * dispatch:.3f} ms, the card still busy after "
+          f"the last launch {1e3 * (t3 - t2):.3f} ms [{name_card}]",
+          flush=True)
+    # where a chunk's staging and launches go: the loop body's four
+    # steps on a zeroed chunk (zero records scatter nothing), unsynchronised
+    # as in the decode
+    from lz4tpu_torch.device import to_device, to_device_packed
+
+    n = fu.PIPE_SUBS
+    chunk = [np.zeros((n, 2, 8, fu.SEQ_MAX // 8), np.int32),
+             np.zeros((n, 8, fu.PATCH_MAX // 8), np.int32),
+             np.zeros((n, 8), np.int32), np.zeros(n, np.int32)]
+    lits_dev = to_device(np.zeros((1, 32, 256), np.uint8), "cuda")
+    segs = fu.segments_tensor([(0, n, 1)], "cuda")
+    ring = fu.zero_ring("cuda")
+    steps = {"window check": [], "packed staging copy": [], "expand": [],
+             "route": []}
+    for _ in range(64):
+        stamps = [time.perf_counter()]
+        fu._check_windows(chunk[3], chunk[2], 1)
+        stamps.append(time.perf_counter())
+        seqrec_d, patch_d, scal_d, winq_d = to_device_packed(chunk, "cuda")
+        stamps.append(time.perf_counter())
+        pos17 = fu.expand(seqrec_d, scal_d, patch_d)
+        stamps.append(time.perf_counter())
+        _rows, ring = fu.route(pos17, lits_dev, winq_d, scal_d, segs, ring)
+        stamps.append(time.perf_counter())
+        for k, a, b in zip(steps, stamps, stamps[1:]):
+            steps[k].append(1e3 * (b - a))
+    torch.cuda.synchronize()
+    print("[pipelined] host time of one chunk's dispatch (64 substeps, "
+          f"{sum(a.nbytes for a in chunk)} B staged): " + ", ".join(
+              f"{k} {statistics.median(t):.4f} ms" for k, t in steps.items())
+          + f" (host clock, median of 64) [{name_card}]", flush=True)
+    return counts
+
+
+def windowed(session, datas, collect, window=4):
+    """Submit ``datas`` with at most ``window`` tickets uncollected,
+    collecting the oldest first; returns collect(ticket) per input."""
+    tickets, outs = [], []
+    for data in datas:
+        while len(tickets) >= window:
+            outs.append(collect(tickets.pop(0)))
+        tickets.append(session.submit(data))
+    outs.extend(collect(t) for t in tickets)
+    return outs
+
+
+def session_path(torch, lt, tpl, _kernels, corp, dev, name_card):
+    """One DecodeSession(max_inflight=4) answers every corpus by
+    result(), result_on_device(verify="device") and
+    result_on_device(verify="none") followed by result(); corrupted
+    frames raise on their own tickets; submit blocks at the bound."""
+    import threading
+
+    datas = [corp[n][0] for n in SERVED]
+    blobs = [corp[n][1] for n in SERVED]
+    # corrupted frames, and what the batch stages raise for each: taken
+    # before the counts are set to 0, so that the session's counts hold
+    # only what the session launched
+    block = bytearray(corp["frag2m-bsum"][0])
+    block[300] ^= 0x20
+    content = bytearray(corp["frag1m"][0])
+    content[-1] ^= 0x01
+    bad = {"corrupted block": bytes(block),
+           "flipped content checksum": bytes(content)}
+    wants = {}
+    for what, data in bad.items():
+        for mode in ("host", "device"):
+            try:
+                tpl._decompress_to_device_batch(data, lt.FOR_ALL, dev, mode)
+            except lt.Lz4Error as e:
+                wants[what, mode] = e
+            else:
+                raise SmokeFailure(f"the batch stages decoded the {what}")
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+
+    def same(outs, what):
+        for name, out, blob in zip(SERVED, outs, blobs):
+            if not isinstance(out, bytes):
+                need(out.is_cuda and out.dtype == torch.uint8,
+                     f"{name}: {what} is not a CUDA uint8 tensor")
+                out = out.cpu().numpy().tobytes()
+            need(out == blob, f"{name}: session {what} differs from the "
+                              "original")
+
+    with lt.DecodeSession(max_inflight=4) as s:
+        need(s.device.type == "cuda", "the session did not take the card")
+        t0 = time.perf_counter()
+        same(windowed(s, datas, lambda t: t.result()), "result()")
+        same(windowed(s, datas, lambda t: t.result_on_device(
+            verify="device")), "result_on_device(verify='device')")
+        deferred = []
+
+        def none_then_bytes(t):
+            deferred.append(t.result_on_device(verify="none"))
+            return t.result()
+
+        same(windowed(s, datas, none_then_bytes),
+             "result() after result_on_device(verify='none')")
+        same(deferred, "result_on_device(verify='none')")
+        del deferred
+        torch.cuda.synchronize()
+        print(f"[session] {len(SERVED)} corpora x 3 rounds (result, "
+              "result_on_device verify='device', verify='none' then "
+              f"result) in {time.perf_counter() - t0:.3f} s, original "
+              f"bytes every time [{name_card}]", flush=True)
+
+        # corrupted frames between good ones: each raises on its own
+        # ticket what the batch stages raise; the neighbours answer
+        for collect, mode in (("result", "host"),
+                              ("result_on_device", "device")):
+            tickets = [s.submit(corp["frag1m"][0]),
+                       s.submit(bad["corrupted block"]),
+                       s.submit(bad["flipped content checksum"]),
+                       s.submit(corp["src1m"][0])]
+            for what, t in zip(bad, tickets[1:3]):
+                want = wants[what, mode]
+                try:
+                    getattr(t, collect)()
+                except lt.Lz4Error as e:
+                    got = e
+                else:
+                    raise SmokeFailure(f"session {collect}() decoded the "
+                                       f"{what}")
+                need(type(got) is type(want) and str(got) == str(want),
+                     f"session error parity ({what}, {collect}): "
+                     f"{type(got).__name__}({got}) vs "
+                     f"{type(want).__name__}({want})")
+                print(f"[session] {what} via {collect}(): "
+                      f"{type(got).__name__}: {got} (as the batch stages "
+                      f"under verify={mode!r})", flush=True)
+            need(tickets[0].result() == corp["frag1m"][1]
+                 and tickets[3].result() == corp["src1m"][1],
+                 "a corrupted frame poisoned its neighbours' tickets")
+        # verify="none" hands the bytes out unverified; the result()
+        # that follows settles the checksum and raises
+        t = s.submit(bad["flipped content checksum"])
+        arr = t.result_on_device(verify="none")
+        need(arr.cpu().numpy().tobytes() == corp["frag1m"][1],
+             "verify='none' did not deliver the decoded bytes")
+        try:
+            t.result()
+        except lt.ChecksumError as e:
+            print("[session] flipped content checksum via "
+                  "result_on_device(verify='none') then result(): bytes "
+                  f"delivered, then ChecksumError: {e}", flush=True)
+        else:
+            raise SmokeFailure("result() after verify='none' did not "
+                               "verify the content checksum")
+
+        # submit blocks at the fifth uncollected ticket
+        held = [s.submit(corp["frag1m"][0]) for _ in range(4)]
+        state = {}
+
+        def fifth():
+            state["ticket"] = s.submit(corp["frag1m"][0])
+
+        th = threading.Thread(target=fifth, daemon=True)
+        th.start()
+        th.join(timeout=1.0)
+        need(th.is_alive() and "ticket" not in state,
+             "submit did not block at the fifth uncollected ticket")
+        need(held[0].result() == corp["frag1m"][1], "held ticket differs")
+        th.join(timeout=60)
+        need(not th.is_alive() and "ticket" in state,
+             "submit stayed blocked after a ticket was collected")
+        for t in held[1:] + [state["ticket"]]:
+            need(t.result() == corp["frag1m"][1], "held ticket differs")
+        print("[session] submit blocked at the fifth uncollected ticket and "
+              "went on after one was collected", flush=True)
+    need(not any(th.name == "lz4tpu-prep" for th in threading.enumerate()),
+         "the session's prep thread did not stop")
+    counts = dict(_kernels.LAUNCHES)
+    for k in ("fused_expand", "fused_route", "mxu2_route", "block_fill",
+              "xxh32_stream"):
+        need(counts[k] > 0, f"session: kernel {k} was not launched")
+    # the session hashes block checksums on the host and decodes by plan
+    for k in ("xxh32_blocks", "segment_decode", "mxu2_route_ab"):
+        need(counts[k] == 0, f"session: kernel {k} was counted "
+                             f"{counts[k]} times; the session never "
+                             "launches it")
+    return counts
+
+
+def sustained_phase(torch, np, lt, tpl, corp, name_card, pairs=5):
+    """The corpus list through one session with four in flight against a
+    serial loop of decompress_to_device, both verify="none", in turns;
+    and the serial host-stage rate (parse + scan + plan) beside them."""
+    datas = [corp[n][0] for n in SERVED]
+    total = sum(len(corp[n][1]) for n in SERVED)
+
+    def host_stages():
+        for data in datas:
+            buf = np.frombuffer(data, np.uint8)
+            parsed = tpl.parse_frames(buf, lt.FOR_ALL)
+            table = tpl.build_seq_table(buf, parsed, lt.FOR_ALL, data,
+                                        pooled_cols=True)
+            tpl.plan_decode(buf, parsed, table)
+
+    def serial():
+        for data in datas:
+            lt.decompress_to_device(data, verify="none")
+
+    with lt.DecodeSession(max_inflight=4) as s:
+        def session():
+            windowed(s, datas,
+                     lambda t: t.result_on_device(verify="none"))
+
+        session()
+        serial()
+        host_stages()
+        torch.cuda.synchronize()
+        ms = in_turns(torch, {"session": session, "serial": serial,
+                              "host_stages": host_stages}, pairs)
+    for k, what in (("session", "DecodeSession(max_inflight=4), "
+                                "result_on_device(verify='none')"),
+                    ("serial", "serial loop of decompress_to_device("
+                               "verify='none')"),
+                    ("host_stages", "serial host stages alone (parse + "
+                                    "scan + plan)")):
+        med = statistics.median(ms[k])
+        print(f"[sustained] {what}: {med_range(ms[k])} per round of "
+              f"{len(datas)} corpora, {total} B decoded = "
+              f"{total / med / 1e6:.3f} GB/s (median and range of {pairs}, "
+              f"in turns) [{name_card}]", flush=True)
+
+
+def staging_phase(torch, np, dev, name_card):
+    """Pinned staging (device.to_device) against the pageable copy, by
+    size: host time until the call returns, and until the copy is done."""
+    from lz4tpu_torch.device import to_device
+
+    rng = np.random.default_rng(41)
+    for n in (12, 2048, 1 << 16, 1 << 20, 4 << 20, 64 << 20):
+        a = rng.integers(0, 256, n, dtype=np.uint8)
+        got = to_device(a, dev)
+        torch.cuda.synchronize()
+        need(got.is_cuda and np.array_equal(got.cpu().numpy(), a),
+             f"to_device: {n} bytes differ after staging")
+        times = {"pinned": ([], []), "pageable": ([], [])}
+        for i in range(7):
+            for k in (("pinned", "pageable"), ("pageable", "pinned"))[i % 2]:
+                torch.cuda.synchronize()
+                s = time.perf_counter()
+                if k == "pinned":
+                    t = to_device(a, dev)
+                else:
+                    t = torch.from_numpy(a).to(dev)
+                mid = time.perf_counter()
+                torch.cuda.synchronize()
+                end = time.perf_counter()
+                times[k][0].append(1e3 * (mid - s))
+                times[k][1].append(1e3 * (end - s))
+                del t
+        print(f"[staging] {n} B: " + ", ".join(
+            f"{k} returns after {statistics.median(r):.4f} ms, done after "
+            f"{statistics.median(d):.4f} ms" for k, (r, d) in times.items())
+            + f" (host clock, median of 7, in turns) [{name_card}]",
+            flush=True)
+
+
+    # a launch's small tables (the shapes of frag1m: 556 substeps), one
+    # copy each against one packed copy
+    from lz4tpu_torch.device import to_device_packed
+
+    small = [rng.integers(0, 9, 556).astype(np.int32),
+             rng.integers(0, 16, (556, 8)).astype(np.int32),
+             np.array([[0, 556, 0]], np.int32)]
+    got = to_device_packed(small, dev)
+    torch.cuda.synchronize()
+    need(all(np.array_equal(t.cpu().numpy(), a) for t, a in zip(got, small)),
+         "to_device_packed: the small tables differ after staging")
+    ways = {"pinned, one copy each": lambda: [to_device(a, dev)
+                                              for a in small],
+            "pageable, one copy each": lambda: [torch.from_numpy(a).to(dev)
+                                                for a in small],
+            "pinned, one packed copy": lambda: to_device_packed(small, dev)}
+    times = {k: [] for k in ways}
+    for i in range(7):
+        for k in (list(ways) if i % 2 == 0 else list(ways)[::-1]):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            t = ways[k]()
+            times[k].append(1e3 * (time.perf_counter() - s))
+            del t
+    print("[staging] three small tables of one launch (2224 + 17792 + 12 B): "
+          + ", ".join(f"{k} returns after {statistics.median(t):.4f} ms"
+                      for k, t in times.items())
+          + f" (host clock, median of 7, in turns) [{name_card}]", flush=True)
 
 
 def error_phase(lt, corp):
@@ -811,7 +1275,14 @@ def main() -> int:
         torch, np, lt, tpl, _kernels, corp, dev, card, "device")
     paths["decompress_device"] = decompress_device_path(
         torch, np, lt, tpl, _kernels, corp, dev, card)
+    paths["ab"] = ab_path(torch, lt, _kernels, corp, card)
+    paths["pipelined"] = pipelined_path(torch, np, lt, tpl, _kernels, corp,
+                                        card)
+    paths["session"] = session_path(torch, lt, tpl, _kernels, corp, dev,
+                                    card)
     verify_compare(torch, lt, corp, card)
+    sustained_phase(torch, np, lt, tpl, corp, card)
+    staging_phase(torch, np, dev, card)
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     for name, n in launches.items():
         need(n > 0, f"kernel {name} was never launched by a path")

@@ -10,8 +10,11 @@ names and messages.
 The device side covers the batched decode (:func:`decompress_to_device`,
 :func:`decompress_device`, ``decompress(backend="device")``) with its
 engines (sparse programs, the fused kernel, the mxu2 kernel, the
-segment-copy kernel, the byte-parallel resolver) and checksum
-verification on the device (``verify="device"``).  Every kernel is CUDA
+segment-copy kernel, the byte-parallel resolver), checksum
+verification on the device (``verify="device"``), the pipelined
+single-chain decode (``pipelined=True``) and the request pipeline
+(:class:`DecodeSession`: a prep thread with its own CUDA stream).
+Every kernel is CUDA
 C++ for ``sm_90a`` (``csrc/``) beside a plain PyTorch version that runs
 on the CPU.
 """
@@ -47,13 +50,16 @@ from .api import (
 from .pipeline import decompress_device, decompress_to_device
 
 
-class DecodeSession:
-    """Not ported yet: the request pipeline of ``lz4tpu.serve``."""
+def __getattr__(name):
+    """PEP 562 lazy re-export: ``lz4tpu_torch.DecodeSession`` is the
+    class in :mod:`lz4tpu_torch.serve` (so isinstance and identity
+    work), imported on first touch."""
+    if name == "DecodeSession":
+        from .serve import DecodeSession as _cls
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "lz4tpu_torch.DecodeSession: the request pipeline "
-            "(lz4tpu.serve) is not ported yet")
+        globals()["DecodeSession"] = _cls
+        return _cls
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def decompress_sharded(*args, **kwargs):

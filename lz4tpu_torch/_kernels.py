@@ -35,9 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"fused_expand": 0, "fused_route": 0, "mxu2_route": 0,
             "block_fill": 0, "xxh32_stream": 0, "xxh32_blocks": 0,
-            "segment_decode": 0}
+            "segment_decode": 0, "mxu2_route_ab": 0}
 
-_lock = threading.Lock()
+_lock = threading.Lock()    # guards the library handle and LAUNCHES
 _lib = None
 
 _P = ctypes.c_void_p
@@ -51,12 +51,14 @@ _SIGNATURES = {
     "lz4t_xxh32_stream": [_P, _I64, _P, _P, _P],
     "lz4t_xxh32_blocks": [_P, _P, _P, _I32, _P, _P],
     "lz4t_segment_decode": [_P, _P, _I64, _P, _I32, _P, _P],
+    "lz4t_mxu2_route_ab": [_P, _I32, _I32, _I32, _P, _P, _P, _P],
 }
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -165,4 +167,5 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         msg = lib().lz4t_error_string(status).decode()
         raise RuntimeError(
             f"lz4tpu_torch: {entry} launch failed: {msg} ({status})")
-    LAUNCHES[kernel] += 1
+    with _lock:
+        LAUNCHES[kernel] += 1

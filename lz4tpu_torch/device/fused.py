@@ -16,18 +16,25 @@ Each has a plain PyTorch version (:func:`expand_plain`,
 :func:`route_plain`), the torch form of ``fused.golden_decode``; a
 wrapper takes it only for CPU tensors and launches the kernel for CUDA
 tensors.
+
+:func:`decode_fused_rows` decodes a whole prep in one launch pair per
+part; :func:`decode_fused_pipelined` cuts one chain into 64-substep
+chunks and launches each as soon as its range prep is done, the ring
+carried on the card from chunk to chunk.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
 from .. import _kernels
-from . import native_engine, to_device
-from .ring import RING, part_segments, segments_tensor, zero_ring
+from . import native_engine, to_device, to_device_packed
+from .ring import (RING, part_segments, segments_array, segments_tensor,
+                   zero_ring)
 
 SUB = 2048                 # output bytes per substep
 ROWB = 256                 # ring row bytes
@@ -126,13 +133,15 @@ def _build_windows(lits_flat: np.ndarray, n_win: int) -> np.ndarray:
     return wins
 
 
-_POOL: dict = {}
+_POOL = threading.local()   # one pool per preparing thread
 _POOL_DEPTH = 4
 
 
 def _pool_arrays(nst: int, lit_cap: int, pooled: bool = True):
     """Rotating buffer pool for prep outputs (recycles warm pages of
-    request-sized preps; ``LZ4TPU_PREP_POOL=0`` disables it)."""
+    request-sized preps; ``LZ4TPU_PREP_POOL=0`` disables it).  Each
+    thread has its own pool: a session's prep thread never hands out a
+    buffer that a caller's decode on another thread still fills."""
     import collections
     import os
 
@@ -150,7 +159,9 @@ def _pool_arrays(nst: int, lit_cap: int, pooled: bool = True):
     nst_b = -(-nst // 64) * 64
     lit_b = 1 << max(12, (lit_cap - 1).bit_length())
     key = (nst_b, lit_b)
-    q = _POOL.setdefault(key, collections.deque())
+    if not hasattr(_POOL, "queues"):
+        _POOL.queues = {}
+    q = _POOL.queues.setdefault(key, collections.deque())
     if len(q) >= _POOL_DEPTH:
         # buffers come back dirty: the native prep writes every live
         # slot and zeroes the tails itself, bounded by the high-water
@@ -422,6 +433,15 @@ def decode_split(seqrec: torch.Tensor, lits: torch.Tensor,
 # whole-prep decode
 # ---------------------------------------------------------------------------
 
+def _check_windows(winq: np.ndarray, scal: np.ndarray, n_win: int) -> None:
+    """The route kernel reads 4 KiB at ``lits[winq[i]]`` row
+    ``scal[i, 1]``: both must lie inside the prepared windows."""
+    wo = scal[:, 1]
+    if (int(winq.min()) < 0 or int(winq.max()) >= n_win
+            or int(wo.min()) < 0 or int(wo.max()) > 16):
+        raise ValueError("fused prep: literal window out of range")
+
+
 def decode_fused_rows(prep: FusedPrep, device, ring_in=None,
                       part_subs: int | None = None):
     """Decode a FusedPrep on ``device``; returns ``(rows, ring_out)``:
@@ -435,26 +455,139 @@ def decode_fused_rows(prep: FusedPrep, device, ring_in=None,
     if n == 0:
         return (torch.zeros(0, dtype=torch.uint8, device=dev),
                 zero_ring(dev) if ring_in is None else ring_in)
-    # the route kernel reads 4 KiB at lits[winq[i]] row scal[i,1]
-    wq, wo = prep.winq[:n], prep.scal[:n, 1]
-    if (int(wq.min()) < 0 or int(wq.max()) >= prep.lits.shape[0]
-            or int(wo.min()) < 0 or int(wo.max()) > 16):
-        raise ValueError("fused prep: literal window out of range")
+    _check_windows(prep.winq[:n], prep.scal[:n], prep.lits.shape[0])
+    part = part_subs or PART_SUBS
+    bounds = [(p0, min(p0 + part, n)) for p0 in range(0, n, part)]
     lits = to_device(prep.lits, dev)
     seqrec = to_device(prep.seqrec[:n], dev)
-    winq = to_device(prep.winq[:n], dev)
-    scal = to_device(prep.scal[:n], dev)
     patch = to_device(prep.patch[:n], dev)
-    part = part_subs or PART_SUBS
+    # the small tables share one staging copy
+    winq, scal, *part_segs = to_device_packed(
+        [prep.winq[:n], prep.scal[:n]]
+        + [segments_array(part_segments(prep.out_spans, p0, p1,
+                                        seeded=ring_in is not None))
+           for p0, p1 in bounds], dev)
     ring = ring_in
     parts = []
-    for p0 in range(0, n, part):
-        p1 = min(p0 + part, n)
-        segs = segments_tensor(
-            part_segments(prep.out_spans, p0, p1,
-                          seeded=ring_in is not None), dev)
+    for (p0, p1), segs in zip(bounds, part_segs):
         pos17 = expand(seqrec[p0:p1], scal[p0:p1], patch[p0:p1])
         rows, ring = route(pos17, lits, winq[p0:p1], scal[p0:p1], segs,
                            ring)
         parts.append(rows)
     return (parts[0] if len(parts) == 1 else torch.cat(parts)), ring
+
+
+# ---------------------------------------------------------------------------
+# pipelined single-chain decode
+# ---------------------------------------------------------------------------
+
+PIPE_SUBS = 64         # pipelined-chunk substeps (128 KiB output)
+
+
+def decode_fused_pipelined(
+    lit_len: np.ndarray,
+    match_len: np.ndarray,
+    match_off: np.ndarray,
+    lit_src: np.ndarray,
+    buf: np.ndarray,
+    pre: tuple,
+    *,
+    device,
+    pipe_subs: int = PIPE_SUBS,
+    counters: dict | None = None,
+):
+    """Single-chain decode with the host prep pipelined against the
+    device (port of ``lz4tpu.device.fused.decode_fused_pipelined``): the
+    chain is cut into ``pipe_subs``-substep chunks; each chunk's prep
+    runs through the native range prep
+    (``native.prep_fused_pre_range``), is staged through pinned memory
+    without waiting for the stream, and launches kernel H1's expand and
+    route at once, so the host preps chunk k+1 while the card decodes
+    chunk k.  The ring chains on the card between launches (``ring_in``,
+    one ``(0, pipe_subs, carry=1)`` segment).
+
+    Every chunk is exactly ``pipe_subs`` substeps: the tail chunk is
+    padded with zeroed prep content (zero records scatter nothing,
+    zeroed scalars route into in-range pages) and its padded rows lie
+    beyond ``n_out``.
+
+    ``pre`` is the ``native.scan_block_full`` tuple (``SeqTable.pre``)
+    or ``native.prep_phase1``'s.  Returns ``(flat_rows, n_out)``: uint8
+    ``(n_chunks * pipe_subs * SUB,)`` on ``device``; raises
+    FusedOverflow on any budget overflow.
+
+    ``counters``: optional dict filled for tests: ``chunks`` (list of
+    ``(i_lo, i_hi)``), ``prep_done_t`` / ``dispatch_t`` (monotonic
+    stamps per chunk).
+    """
+    import time
+
+    from .. import native
+
+    if not native.available():
+        raise FusedOverflow("pipelined decode requires the native engine")
+    dev = torch.device(device)
+    starts_ext, litpos_ext, lits_flat, _max_off = pre
+    S = lit_len.size
+    n_out = int(starts_ext[S]) if S else 0
+    n_lit = int(litpos_ext[S]) if S else 0
+    n_sub = -(-n_out // SUB) if n_out else 0
+    if n_sub == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=dev), 0
+    n_win = max(1, -(-max(1, n_lit) // LITWIN_Q))
+    n_pad = -(-n_sub // pipe_subs) * pipe_subs
+    _, winq, scal, seqrec, patch, hw = _pool_arrays(n_pad, 1)
+    if n_pad > n_sub:
+        # the tail chunk decodes zeroed substeps (pool buffers come
+        # back dirty); their rows are sliced off
+        winq[n_sub:] = 0
+        scal[n_sub:] = 0
+        seqrec[n_sub:] = 0
+        patch[n_sub:] = 0
+        hw[n_sub:] = 0
+    lits_dev = to_device(_build_windows(lits_flat[:n_lit], n_win), dev)
+    # exact per-substep record-count bound: records are the producing
+    # sequences starting in a substep
+    sizes = lit_len.astype(np.int64) + match_len
+    prod = np.where(sizes > 0)[0]
+    max_recs = (int(np.bincount(
+        starts_ext[prod] // SUB, minlength=1).max()) if prod.size else 0)
+    if max_recs > SEQ_MAX:
+        raise FusedOverflow(
+            f"{max_recs} seq records per substep (budget {SEQ_MAX})"
+        )
+    ll32 = np.ascontiguousarray(lit_len, np.int32)
+    ml32 = np.ascontiguousarray(match_len, np.int32)
+    mo32 = np.ascontiguousarray(match_off, np.int32)
+    ls32 = np.ascontiguousarray(lit_src, np.int32)
+    buf8 = np.ascontiguousarray(buf, np.uint8)
+    segs_first, segs_carry = to_device_packed(
+        [segments_array([(0, pipe_subs, 0)]),
+         segments_array([(0, pipe_subs, 1)])], dev)
+    parts = []
+    ring = None
+    for i_lo in range(0, n_sub, pipe_subs):
+        i_hi = min(i_lo + pipe_subs, n_sub)
+        try:
+            native.prep_fused_pre_range(
+                ll32, ml32, mo32, ls32, buf8, n_win,
+                starts_ext, litpos_ext, lits_flat, n_out,
+                i_lo, i_hi, winq, scal, seqrec, patch, hw,
+            )
+        except ValueError as exc:
+            raise FusedOverflow(str(exc)) from None
+        if counters is not None:
+            counters.setdefault("chunks", []).append((i_lo, i_hi))
+            counters.setdefault("prep_done_t", []).append(time.monotonic())
+        sl = slice(i_lo, i_lo + pipe_subs)
+        _check_windows(winq[sl], scal[sl], n_win)
+        # one staging copy a chunk
+        seqrec_dev, patch_dev, scal_dev, winq_dev = to_device_packed(
+            [seqrec[sl], patch[sl], scal[sl], winq[sl]], dev)
+        pos17 = expand(seqrec_dev, scal_dev, patch_dev)
+        rows, ring = route(pos17, lits_dev, winq_dev, scal_dev,
+                           segs_first if ring is None else segs_carry, ring)
+        if counters is not None:
+            counters.setdefault("dispatch_t", []).append(time.monotonic())
+        parts.append(rows)
+    return (torch.cat(parts) if len(parts) > 1 else parts[0]), n_out

@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from . import native_engine, to_device
-from .ring import RING, part_segments, segments_tensor, zero_ring
+from . import native_engine, to_device, to_device_packed
+from .ring import RING, part_segments, segments_array, zero_ring
 
 SUB = 2048          # output bytes per substep
 PAGES = 256         # 64 KiB history ring: 256 pages x 256 bytes
@@ -163,14 +163,17 @@ def decode_dense2_rows(pack: DensePack2, device, ring_in=None,
         return (torch.zeros(0, dtype=torch.uint8, device=dev),
                 zero_ring(dev) if ring_in is None else ring_in)
     part = part_subs or PART_SUBS
+    bounds = [(p0, min(p0 + part, n)) for p0 in range(0, n, part)]
+    # the small tables share one staging copy
+    scal, *part_segs = to_device_packed(
+        [pack.scal[:n]]
+        + [segments_array(part_segments(pack.out_spans, p0, p1,
+                                        seeded=ring_in is not None))
+           for p0, p1 in bounds], dev)
     ring = ring_in
     parts = []
-    for p0 in range(0, n, part):
-        p1 = min(p0 + part, n)
-        segs = segments_tensor(
-            part_segments(pack.out_spans, p0, p1,
-                          seeded=ring_in is not None), dev)
-        rows, ring = route(to_device(pack.code[p0:p1], dev),
-                           to_device(pack.scal[p0:p1], dev), segs, ring)
+    for (p0, p1), segs in zip(bounds, part_segs):
+        rows, ring = route(to_device(pack.code[p0:p1], dev), scal[p0:p1],
+                           segs, ring)
         parts.append(rows)
     return (parts[0] if len(parts) == 1 else torch.cat(parts)), ring

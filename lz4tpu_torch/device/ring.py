@@ -57,9 +57,14 @@ def part_segments(out_spans, p0: int, p1: int, seeded: bool) -> list:
     return segs
 
 
+def segments_array(segs: list) -> np.ndarray:
+    return np.array(segs, np.int32).reshape(-1, 3)
+
+
 def segments_tensor(segs: list, device) -> torch.Tensor:
-    return torch.tensor(segs, dtype=torch.int32,
-                        device=device).reshape(-1, 3)
+    from . import to_device
+
+    return to_device(segments_array(segs), device)
 
 
 def zero_ring(device) -> torch.Tensor:

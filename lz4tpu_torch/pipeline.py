@@ -24,6 +24,12 @@ is byte-identical to the reference's.
 ``device`` is explicit everywhere: ``"cuda"`` runs the kernels and
 raises when CUDA is absent; ``"cpu"`` runs every engine's plain PyTorch
 version.
+
+Nothing between the scan and the verification waits for the card: host
+arrays are staged through pinned memory (``device.to_device``) and the
+kernels launch on the calling thread's current stream, so a caller (or
+``serve.DecodeSession``'s prep thread) goes on to the next request's
+host work while the card decodes this one.
 """
 
 from __future__ import annotations
@@ -701,6 +707,51 @@ def assemble_device_segments(segs: list, n_out: int, device) -> torch.Tensor:
     return out
 
 
+def _pipelined_rows(buf: np.ndarray, table: SeqTable, dev: torch.device,
+                    pipelined: bool | None) -> torch.Tensor | None:
+    """Try the pipelined single-chain fused decode (prep chunks
+    interleaved with asynchronous launches,
+    ``device.fused.decode_fused_pipelined``); returns the uint8 tensor
+    on ``dev``, or None when not applicable or on a budget overflow (the
+    caller then runs the monolithic plan).
+
+    Opt-in: ``pipelined=True``, or ``LZ4TPU_PIPELINE=1`` when
+    ``pipelined`` is None."""
+    if pipelined is None:
+        pipelined = os.environ.get("LZ4TPU_PIPELINE", "0") == "1"
+    if not pipelined:
+        return None
+    from . import native
+
+    if not native.available():
+        return None
+    chains = _chains_of(table)
+    if len(chains) != 1:
+        return None
+    c = chains[0]
+    if c.seq_hi - c.seq_lo <= _SPARSE_MAX_SEQS:
+        return None
+    if c.out_hi - c.out_lo > _FUSED_MAX_CHAIN_OUT:
+        return None
+    pre = table.pre
+    if pre is None:
+        # multi-block single-chain stream: the per-block scans cannot
+        # emit the fast-path tuple, so reconstruct it (native phase-1
+        # pass over the chain's columns: O(S + literal bytes))
+        pre = native.prep_phase1(
+            table.lit_len, table.match_len, table.match_off,
+            table.lit_src, buf,
+        )
+    try:
+        flat, n_out = fu.decode_fused_pipelined(
+            table.lit_len, table.match_len, table.match_off,
+            table.lit_src, buf, pre, device=dev,
+        )
+    except fu.FusedOverflow:
+        return None
+    return flat[:n_out]
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -744,19 +795,16 @@ def decompress_to_device(
     was) and ``out`` is returned.  Raises ``ValueError`` if it is too
     small, not 1-D uint8, or on another device.
 
-    pipelined: the overlapped host-prep/device decode
-    (``pipelined=True`` or ``LZ4TPU_PIPELINE=1``) is not ported yet.
+    pipelined: ``True`` (or ``LZ4TPU_PIPELINE=1`` in the environment
+    when left None) decodes a single text chain chunk by chunk, the
+    host's prep of chunk k+1 overlapping the card's decode of chunk k
+    (:func:`_pipelined_rows`); inputs it does not fit, and fused-budget
+    overflows, take the monolithic plan as without it.
     """
     dev = _resolve_device(device)
-    if pipelined is None:
-        pipelined = os.environ.get("LZ4TPU_PIPELINE", "0") == "1"
-    if pipelined:
-        raise NotImplementedError(
-            "lz4tpu_torch: the pipelined fused decode "
-            "(lz4tpu.device.fused.decode_fused_pipelined) is not ported "
-            "yet; pass pipelined=False")
     try:
-        res = _decompress_to_device_batch(data, reservation, dev, verify)
+        res = _decompress_to_device_batch(data, reservation, dev, verify,
+                                          pipelined)
     except Lz4Error:
         # stream-order fault precedence: the streaming engine
         # re-derives the diagnostic; if it succeeds (batch-only
@@ -786,7 +834,9 @@ def _write_into(res: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 
 def _decompress_to_device_batch(data, reservation, dev: torch.device,
-                                verify: str) -> torch.Tensor:
+                                verify: str,
+                                pipelined: bool | None = None
+                                ) -> torch.Tensor:
     buf = np.frombuffer(bytes(data), dtype=np.uint8)
     if buf.size == 0:
         return torch.zeros(0, dtype=torch.uint8, device=dev)
@@ -811,9 +861,12 @@ def _decompress_to_device_batch(data, reservation, dev: torch.device,
         # stage once: the batched per-block xxh32 kernel hashes the
         # compressed bytes on the device, and sparse programs reuse it
         comp_dev = to_device(buf, dev)
-    segs = build_device_segments(
-        buf, table, plan_decode(buf, parsed, table), dev, comp_dev=comp_dev)
-    out_dev = assemble_device_segments(segs, table.n_out, dev)
+    out_dev = _pipelined_rows(buf, table, dev, pipelined)
+    if out_dev is None:
+        segs = build_device_segments(
+            buf, table, plan_decode(buf, parsed, table), dev,
+            comp_dev=comp_dev)
+        out_dev = assemble_device_segments(segs, table.n_out, dev)
     if verify == "host":
         _verify_checksums(buf, parsed, out_dev.cpu().numpy(), table)
     elif verify == "device":

@@ -250,3 +250,124 @@ def test_decode_split_on_card(cuda):
     rows_p, ring_p = tfu.decode_split(*args, n_sub=n)
     assert torch.equal(rows_k.cpu(), rows_p)
     assert torch.equal(ring_k.cpu(), ring_p)
+
+
+@pytest.mark.parametrize("variant", ["exact", "prefetch"])
+@pytest.mark.parametrize("sub", [2048, 3072, 4096, 6144, 12288])
+def test_mxu2_route_ab_kernel(cuda, sub, variant):
+    """Kernel H7 against its plain version for every exact substep
+    size: 200 KB wrap the ring three times, from a seeded ring."""
+    from lz4tpu_torch.exp import ab
+
+    blob = _src_text(200_000)
+    code, _scal, n_out = ab.pack_host(lz4tpu_torch.compress(blob), sub)
+    ring_in = torch.from_numpy(np.random.default_rng(sub).integers(
+        0, 256, 65536, dtype=np.uint8))
+    code_t = torch.from_numpy(code)
+    n0 = _kernels.LAUNCHES["mxu2_route_ab"]
+    rows_k, ring_k = ab.route_variant(code_t.to(cuda), sub,
+                                      ring_in.to(cuda), variant)
+    assert _kernels.LAUNCHES["mxu2_route_ab"] == n0 + 1
+    rows_p, ring_p = ab.route_variant_plain(code_t, sub, ring_in)
+    torch.cuda.synchronize()
+    assert torch.equal(rows_k.cpu(), rows_p)
+    assert torch.equal(ring_k.cpu(), ring_p)
+    assert rows_p.numpy()[:n_out].tobytes() == blob
+
+
+def test_mxu2_route_ab_ablations_launch(cuda):
+    """The timing-only variants launch and leave the ring shape alone
+    (their bytes are not the decode and are not compared)."""
+    from lz4tpu_torch.exp import ab
+
+    code, _scal, _n = ab.pack_host(
+        lz4tpu_torch.compress(_src_text(100_000)), 4096)
+    code_t = torch.from_numpy(code).to(cuda)
+    for variant in ab.VARIANTS:
+        rows, ring = ab.route_variant(code_t, 4096, None, variant)
+        torch.cuda.synchronize()
+        assert rows.shape == (code.size,) and ring.shape == (65536,)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ab.route_variant(code_t, 4096, torch.zeros(65536,
+                                                   dtype=torch.uint8))
+
+
+def test_harness_runs_on_card(cuda):
+    from lz4tpu_torch.exp import ab
+
+    blob = _src_text(150_000)
+    rows = ab.run(lz4tpu_torch.compress(blob), blob,
+                  ("sub2k", "p3sf6k", "noring@12288"), lo=2, hi=6, rounds=3)
+    assert [r["sub"] for r in rows] == [2048, 6144, 12288]
+    assert all(r["ms"] > 0 for r in rows)
+
+
+def test_pipelined_on_card(cuda):
+    blob = _frag_text(700_000, 21)
+    data = lz4tpu_torch.compress(blob)
+    before = dict(_kernels.LAUNCHES)
+    out = lz4tpu_torch.decompress_to_device(data, pipelined=True)
+    assert out.cpu().numpy().tobytes() == blob
+    n_chunks = -(-(-(-len(blob) // tfu.SUB)) // tfu.PIPE_SUBS)
+    assert _kernels.LAUNCHES["fused_route"] == before["fused_route"] + n_chunks
+    assert (_kernels.LAUNCHES["fused_expand"]
+            == before["fused_expand"] + n_chunks)
+
+
+def test_session_on_card(cuda):
+    """A session on the card: every engine, the three ways to collect,
+    a corrupted frame between good ones."""
+    blobs = [_frag_text(400_000, 22), _src_text(200_000),
+             bytes(3_000_000),
+             np.random.default_rng(3).integers(
+                 0, 256, 300_000, dtype=np.uint8).tobytes(), b""]
+    datas = [lz4tpu_torch.compress(b) for b in blobs]
+    before = dict(_kernels.LAUNCHES)
+    with lz4tpu_torch.DecodeSession(max_inflight=len(datas)) as s:
+        assert s.device.type == "cuda"
+        tickets = [s.submit(d) for d in datas]
+        assert [t.result() for t in tickets] == blobs
+        tickets = [s.submit(d) for d in datas]
+        for t, b in zip(tickets, blobs):
+            arr = t.result_on_device()
+            assert arr.is_cuda and arr.cpu().numpy().tobytes() == b
+        tickets = [s.submit(d) for d in datas]
+        for t, b in zip(tickets, blobs):
+            arr = t.result_on_device(verify="none")
+            assert arr.cpu().numpy().tobytes() == b
+            assert t.result() == b
+        bad = bytearray(datas[0])
+        bad[-1] ^= 0x01
+        t_good, t_bad, t_more = (s.submit(datas[1]), s.submit(bytes(bad)),
+                                 s.submit(datas[0]))
+        with pytest.raises(lz4tpu_torch.ChecksumError) as ed:
+            t_bad.result_on_device()
+        with pytest.raises(lz4tpu_torch.ChecksumError) as eh:
+            lz4tpu_torch.decompress_host(bytes(bad))
+        assert str(ed.value) == str(eh.value)
+        assert t_good.result() == blobs[1] and t_more.result() == blobs[0]
+    for k in ("fused_expand", "fused_route", "mxu2_route", "block_fill",
+              "xxh32_stream"):
+        assert _kernels.LAUNCHES[k] > before[k], k
+
+
+def test_to_device_packed_on_card(cuda):
+    """The packed staging copy on the card: views of one device buffer
+    with the arrays' values, dtypes and shapes, each aligned for the
+    kernels' 16-byte vector loads."""
+    from lz4tpu_torch.device import to_device_packed
+
+    rng = np.random.default_rng(5)
+    arrays = [rng.integers(-2**31, 2**31 - 1, (64, 2, 8, 72), dtype=np.int32),
+              rng.integers(0, 1 << 20, (64, 8, 32), dtype=np.int32),
+              rng.integers(0, 16, (64, 8), dtype=np.int32),
+              rng.integers(0, 9, 64, dtype=np.int32),
+              np.array([[0, 64, 1]], np.int32),
+              np.zeros((0, 3), np.int32),
+              rng.integers(0, 256, 13, dtype=np.uint8)]
+    packed = to_device_packed(arrays, "cuda")
+    torch.cuda.synchronize()
+    for a, t in zip(arrays, packed):
+        assert t.is_cuda and t.is_contiguous() and tuple(t.shape) == a.shape
+        assert t.data_ptr() % 16 == 0
+        assert np.array_equal(t.cpu().numpy(), a)

@@ -1,6 +1,7 @@
 """lz4tpu_torch stands alone: with ``import jax`` and ``import lz4tpu``
 both made to fail, the package imports, compresses, and decodes one
-input per engine on the CPU; no file of it (nor ``chip_smoke.py``)
+input per engine on the CPU, through the pipelined decode, the session
+and the A/B harness's plain side too; no file of it (nor ``chip_smoke.py``)
 imports either or reaches into ``lz4tpu/`` by path; and its native
 engine is built from its own C++ source."""
 
@@ -45,6 +46,20 @@ for engine in ("auto", "pallas", "resolve"):
     assert lz4tpu_torch.decompress_device(
         data, engine=engine, device="cpu") == small, engine
 assert lz4tpu_torch.decompress(data, backend="host") == small
+# the pipelined decode, the session and the A/B harness's host side
+out = lz4tpu_torch.decompress_to_device(
+    lz4tpu_torch.compress(text), device="cpu", pipelined=True)
+assert out.numpy().tobytes() == text
+with lz4tpu_torch.DecodeSession(device="cpu") as s:
+    tickets = [s.submit(lz4tpu_torch.compress(b)) for b in (text, src, b"")]
+    assert [t.result() for t in tickets] == [text, src, b""]
+    t = s.submit(data)
+    assert t.result_on_device().numpy().tobytes() == small
+import torch
+from lz4tpu_torch.exp import ab
+code, scal, n_out = ab.pack_host(lz4tpu_torch.compress(src), 3072)
+rows, ring = ab.route_variant(torch.from_numpy(code), 3072)
+assert rows.numpy()[:n_out].tobytes() == src
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 assert "jax" not in loaded and "lz4tpu" not in loaded
 print("standalone OK")
@@ -60,7 +75,10 @@ def test_decodes_every_engine_with_jax_blocked():
 
 def _port_files():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 18
+    assert len(files) >= 21
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"lz4tpu_torch/serve.py", "lz4tpu_torch/exp/ab.py",
+            "lz4tpu_torch/exp/__init__.py", "chip_smoke.py"} <= names
     return files
 
 
@@ -92,6 +110,31 @@ def test_no_file_reaches_into_lz4tpu_by_path():
     assert pathlib.Path(native._SRC) == PKG / "native" / "lz4core.cpp"
     assert pathlib.Path(native._SO).parent == PKG / "native"
     assert (PKG / "native" / "lz4core.cpp").is_file()
+
+
+def test_no_file_imports_the_tpu_experiments():
+    # exp/ at the root is the JAX package's harness directory; the
+    # port's own is lz4tpu_torch/exp
+    pat = re.compile(r"^\s*(import\s+exp|from\s+exp)([\s.]|$)", re.M)
+    for f in _port_files():
+        assert not pat.search(f.read_text()), f
+
+
+def test_decode_session_is_exported_lazily():
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, lz4tpu_torch\n"
+         "assert 'lz4tpu_torch.serve' not in sys.modules\n"
+         "assert 'DecodeSession' not in vars(lz4tpu_torch)\n"
+         "cls = lz4tpu_torch.DecodeSession\n"
+         "import lz4tpu_torch.serve\n"
+         "assert cls is lz4tpu_torch.serve.DecodeSession\n"
+         "assert vars(lz4tpu_torch)['DecodeSession'] is cls\n"
+         "try:\n    lz4tpu_torch.nothing_here\n"
+         "except AttributeError as e:\n    assert 'nothing_here' in str(e)\n"
+         "else:\n    raise SystemExit('no AttributeError')\n"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 def test_exports_match_the_jax_package():
