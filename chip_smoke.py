@@ -27,8 +27,8 @@ g++:  ``python3 chip_smoke.py``.  It
    each path must launch; then times ``verify="host"`` against
    ``verify="device"``, pipelined against monolithic, and the session
    against a serial loop (with the serial host-stage rate beside them)
-   end to end in alternating turns, and pinned staging against the
-   pageable copy;
+   end to end in alternating turns, pinned staging against the
+   pageable copy, and takes the device busy share with torch.profiler;
 5. checks that corrupted frames raise what
    ``lz4tpu_torch.decompress_host`` raises, under both verify modes;
 6. times the device content checksum against a fetch and the native
@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -94,6 +95,35 @@ __global__ void chain_probe(long long n_rounds, unsigned* state) {
 extern "C" int chain_probe_launch(long long n_rounds, void* state,
                                   void* stream) {
   chain_probe<<<1, 4, 0, static_cast<cudaStream_t>(stream)>>>(
+      n_rounds, static_cast<unsigned*>(state));
+  return int(cudaGetLastError());
+}
+// One warp's dependent shared-memory round trip: each lane loads a word
+// that another lane stored in the round before (its address comes from the
+// last loaded value), stores its own, and the warp synchronises.  The time
+// per round is the least a chain of matches that each read what the one
+// before wrote can take per step on this card: segment_decode's chain
+// bound.
+__global__ void smem_probe(long long n_rounds, unsigned* state) {
+  __shared__ unsigned buf[64];
+  const unsigned lane = threadIdx.x;
+  buf[lane] = state[lane];
+  buf[32 + lane] = 0;
+  __syncwarp();
+  unsigned x = lane, h = 0;
+#pragma unroll 4
+  for (long long i = 0; i < n_rounds; ++i) {
+    const unsigned v = buf[h * 32 + x];
+    h ^= 1u;
+    buf[h * 32 + lane] = v + 1u;
+    __syncwarp();
+    x = (v + 1u) & 31u;
+  }
+  state[lane] = x;
+}
+extern "C" int smem_probe_launch(long long n_rounds, void* state,
+                                 void* stream) {
+  smem_probe<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       n_rounds, static_cast<unsigned*>(state));
   return int(cudaGetLastError());
 }
@@ -180,6 +210,20 @@ def corpora(np, lt):
     }
 
 
+def segment_shapes(np, lt, corp):
+    """What kernel H6 is timed on, as ``(name, compressed, original)``:
+    frag1m (one chain), indep2m (2 MiB of fragments, seed 14, in 32
+    independent 64 KiB blocks), frag32m in 512 independent 64 KiB
+    blocks, and src1m (one chain) last."""
+    indep = frag_text(np, 2 << 20, 8192, 3, 8, 14)
+    kw = dict(block_max_code=4, block_independence=True)
+    return (("frag1m", *corp["frag1m"][:2]),
+            ("indep2m", lt.compress(indep, **kw), indep),
+            ("frag32m in independent 64 KiB blocks",
+             lt.compress(corp["frag32m"][1], **kw), corp["frag32m"][1]),
+            ("src1m", *corp["src1m"][:2]))
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -235,21 +279,54 @@ def start_probe_build(_kernels):
 
 
 def load_probe(torch, proc, so):
-    """The probe as probe(n_rounds), once its build has ended."""
+    """The probes as ``{"xxh32": probe(n_rounds), "smem": ...}``, once
+    their build has ended."""
     import ctypes
 
     log = proc.communicate()[0]
     need(proc.returncode == 0, f"nvcc failed on the chain probe:\n{log}")
-    fn = ctypes.CDLL(str(so)).chain_probe_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
-    state = torch.arange(1, 5, dtype=torch.int32, device="cuda")
+    lib = ctypes.CDLL(str(so))
+    state = torch.arange(1, 33, dtype=torch.int32, device="cuda")
 
-    def probe(n_rounds):
-        status = fn(n_rounds, state.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream)
-        need(status == 0, f"chain probe launch failed ({status})")
-    return probe
+    def bind(entry):
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+
+        def probe(n_rounds):
+            status = fn(n_rounds, state.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+            need(status == 0, f"{entry} failed ({status})")
+        return probe
+    return {"xxh32": bind("chain_probe_launch"),
+            "smem": bind("smem_probe_launch")}
+
+
+def chain_depth(np, cols) -> int:
+    """Depth of a chain's byte-level match dependency: a literal byte
+    has depth 0, a match's bytes 1 + the largest depth in its source.
+    No decoder can resolve the chain in fewer dependent steps."""
+    dst, _src, lit_len, match_off, match_len = (c.tolist() for c in cols)
+    depth = np.zeros(max(d + a + b for d, a, b in
+                         zip(dst, lit_len, match_len)), np.uint32)
+    for d, ll, off, ml in zip(dst, lit_len, match_off, match_len):
+        if ml:
+            md = d + ll
+            lo = md - max(off, 1)
+            depth[md:md + ml] = 1 + int(depth[lo:min(lo + ml, md)].max())
+    return int(depth.max())
+
+
+def kernel_name(mangled: str) -> str:
+    """The ``..._kernel`` source name inside a mangled entry name (a
+    mangled name holds each source name behind that name's length)."""
+    at = mangled.find("_kernel")
+    end = at + len("_kernel")
+    for start in range(end - 1 if at >= 0 else 0, 0, -1):
+        name = mangled[start:end]
+        if name[0].isalpha() and mangled[:start].endswith(str(len(name))):
+            return name
+    return mangled[:60]
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -287,7 +364,7 @@ def kernel_phase(torch, np, lt, tpl, corp, dev, name_card, probe):
     from lz4tpu_torch.device import to_device
     from lz4tpu_torch.device import xxh32_cuda as xx
     from lz4tpu_torch.device.ring import part_segments, segments_tensor
-    from lz4tpu_torch.exp import ab
+    from lz4tpu_torch.exp import ab, edge
 
     rows = {}
 
@@ -349,6 +426,48 @@ def kernel_phase(torch, np, lt, tpl, corp, dev, name_card, probe):
          "decode_split differs from expand + route")
     print(f"[kernel] decode_split (fused_expand + fused_route in one "
           f"call): equal on {shape}", flush=True)
+    # the route at the edges of its gather (sources across a word, a
+    # run's end, the ring's end into the window), one and three segments,
+    # zero and seeded ring, and a ring carried from launch to launch
+    case = edge.route_case(n_sub=300)    # passes the scalar chunks twice
+    e_pos, e_lits, e_winq, e_scal = (to_device(a, dev) for a in case)
+    n_e = case[0].shape[0]
+    seed_ring = to_device(np.random.default_rng(9).integers(
+        0, 256, 65536, dtype=np.uint8), dev)
+    for segs_e in ([(0, n_e, 0)], [(0, n_e, 1)],
+                   [(0, 1, 1), (1, 3, 0), (3, n_e, 0)]):
+        st = segments_tensor(segs_e, dev)
+        got = fu.route(e_pos, e_lits, e_winq, e_scal, st, seed_ring)
+        want = fu.route_plain(e_pos, e_lits, e_winq, e_scal, st, seed_ring)
+        torch.cuda.synchronize()
+        need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+             f"fused_route: edge sources, segments {segs_e}: kernel differs "
+             "from plain")
+    # sources outside the 17-bit space clamp as the plain version's do
+    stray = [to_device(a, dev) for a in edge.route_case(n_sub=20, stray=True)]
+    st = segments_tensor([(0, 20, 1)], dev)
+    got = fu.route(*stray, st, seed_ring)
+    want = fu.route_plain(*stray, st, seed_ring)
+    torch.cuda.synchronize()
+    need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+         "fused_route: sources below 0 and past the window: kernel differs "
+         "from plain")
+    whole = fu.route(e_pos, e_lits, e_winq, e_scal,
+                     segments_tensor([(0, n_e, 0)], dev))
+    for cut in (1, 3, 17, 130):
+        first = fu.route(e_pos[:cut], e_lits, e_winq[:cut], e_scal[:cut],
+                         segments_tensor([(0, cut, 0)], dev))
+        second = fu.route(e_pos[cut:], e_lits, e_winq[cut:], e_scal[cut:],
+                          segments_tensor([(0, n_e - cut, 1)], dev), first[1])
+        torch.cuda.synchronize()
+        need(torch.equal(torch.cat([first[0], second[0]]), whole[0])
+             and torch.equal(second[1], whole[1]),
+             f"fused_route: ring carried across launches at substep {cut} "
+             "differs from one launch")
+    print(f"[kernel] fused_route: equal to plain on {n_e} substeps of edge "
+          "sources (word, run end, ring end), 1 and 3 segments, seeded ring, "
+          "ring carried across launches, and on sources outside the 17-bit "
+          "space", flush=True)
 
     # H3 on src1m: one mxu2 chain, 512 substeps
     _buf, _p, _t, plan, _st = plan_of(np, lt, tpl, corp["src1m"][0])
@@ -439,7 +558,7 @@ def kernel_phase(torch, np, lt, tpl, corp, dev, name_card, probe):
     # the xxh32 chain alone: time per round of the dependent lane update
     rounds = 4_000_000
     round_ns = 1e6 * cuda_ms(
-        torch, lambda: probe(rounds), 5) / rounds
+        torch, lambda: probe["xxh32"](rounds), 5) / rounds
     print(f"[kernel] xxh32 chain probe: {round_ns:.3f} ns per dependent "
           f"lane update (4 threads, registers only, {rounds} rounds) "
           f"[{name_card}]", flush=True)
@@ -533,20 +652,23 @@ def kernel_phase(torch, np, lt, tpl, corp, dev, name_card, probe):
            "stripes",
            plain_shape=f"5 blocks, longest {int(lens.max()) // 16} stripes")
 
-    # H6: small shape against plain, then src1m and frag1m (one chain
-    # each) and 32 independent chains against the original bytes
+    # H6: small shape and the edge tables against plain, then src1m and
+    # frag1m (one chain each), 32 and 512 independent chains against the
+    # original bytes; the chain bound from the table's dependency depth
     def tables(data):
         buf, parsed, table, _plan, _st = plan_of(np, lt, tpl, data)
         chains = [c for c in tpl._chains_of(table) if c.out_hi > c.out_lo]
         cols, rws = tpl._segment_tables(parsed, table, chains)
         comp = to_device(buf, dev)
         need(sg.covers(cols, rws), "an LZ4 table leaves output unwritten")
-        seqs, ch, total = sg.pack_chains(cols, rws, comp.shape[0], dev)
-        return comp, seqs, ch, total, cols
+        seqs, ch, total, longest = sg.pack_chains(cols, rws, comp.shape[0],
+                                                  dev)
+        return comp, seqs, ch, total, cols, longest
 
     small_text = repo_text(1 << 16)
-    comp, seqs, ch, total, _c = tables(lt.compress(small_text))
-    sm_k = sg.segment_decode(comp, seqs, ch, total, zero_fill=False)
+    comp, seqs, ch, total, _c, longest = tables(lt.compress(small_text))
+    sm_k = sg.segment_decode(comp, seqs, ch, total, zero_fill=False,
+                             max_chain=longest)
     sm_p = sg.segment_decode_plain(comp, seqs, ch, total)
     torch.cuda.synchronize()
     err = max_abs_err(torch, sm_k, sm_p)
@@ -555,28 +677,57 @@ def kernel_phase(torch, np, lt, tpl, corp, dev, name_card, probe):
     plain_ms = cuda_ms(
         torch, lambda: sg.segment_decode_plain(comp, seqs, ch, total), 1)
     plain_shape = f"64 KiB of src text, {seqs.shape[1]} sequences"
-    indep = frag_text(np, 2 << 20, 8192, 3, 8, 14)
-    for name, data, blob in (
-            ("frag1m", corp["frag1m"][0], corp["frag1m"][1]),
-            ("indep2m", lt.compress(indep, block_max_code=4,
-                                    block_independence=True), indep),
-            ("src1m", corp["src1m"][0], corp["src1m"][1])):
-        comp, seqs, ch, total, cols = tables(data)
-        got = sg.segment_decode(comp, seqs, ch, total, zero_fill=False)
+    for name in edge.SEGMENT_CASES:
+        e_comp, e_cols, e_n, e_want = edge.segment_case(name)
+        e_dev = to_device(e_comp, dev)
+        e_seqs, e_ch, e_total, e_longest = sg.pack_chains(
+            [e_cols], [(e_cols[0].size, 0, 0, e_n)], e_comp.size, dev)
+        for ring_hint in (e_longest, None):
+            got = sg.segment_decode(e_dev, e_seqs, e_ch, e_total,
+                                    max_chain=ring_hint)
+            torch.cuda.synchronize()
+            need(np.array_equal(got.cpu().numpy(), e_want),
+                 f"segment_decode: edge table {name} differs from its "
+                 "reference")
+        err = max(err, max_abs_err(
+            torch, got, sg.segment_decode_plain(e_dev, e_seqs, e_ch,
+                                                e_total)))
+    print(f"[kernel] segment_decode: equal to plain and to the numpy "
+          f"reference on the edge tables {', '.join(edge.SEGMENT_CASES)} "
+          "(a chain beyond the ring with offset 65,535, gaps and overlapping "
+          "matches across tile edges, offsets above 65,535)", flush=True)
+    rounds = 2_000_000
+    trip_ns = 1e6 * cuda_ms(torch, lambda: probe["smem"](rounds), 5) / rounds
+    print(f"[kernel] shared-memory round trip probe: {trip_ns:.3f} ns per "
+          f"dependent load, store and warp synchronisation (one warp, "
+          f"{rounds} rounds) [{name_card}]", flush=True)
+    for name, data, blob in segment_shapes(np, lt, corp):
+        comp, seqs, ch, total, cols, longest = tables(data)
+        got = sg.segment_decode(comp, seqs, ch, total, zero_fill=False,
+                                max_chain=longest)
         torch.cuda.synchronize()
         need(got.cpu().numpy().tobytes() == blob,
              f"segment_decode: {name} differs from the original")
         ms = cuda_ms(torch, lambda: sg.segment_decode(
-            comp, seqs, ch, total, zero_fill=False), 5)
+            comp, seqs, ch, total, zero_fill=False, max_chain=longest), 5)
         lit_bytes = sum(int(c[2].sum()) for c in cols)
         bound = 1e3 * (lit_bytes + nbytes(seqs, ch) + total) / HBM_BYTES_PER_S
         shape = (f"{name}, {ch.shape[0]} chain(s), {seqs.shape[1]} "
                  "sequences")
-        if name != "src1m":
-            print(f"[kernel] segment_decode: {ms:.4f} ms at {shape}, bound "
-                  f"{bound:.4f} ms (bytes) [{name_card}]", flush=True)
+        line = (f"[kernel] segment_decode: {ms:.4f} ms at {shape}, ring "
+                f"{sg.ring_bytes_for(longest)} B, bound {bound:.4f} ms "
+                "(bytes)")
+        if ch.shape[0] == 1:
+            depth = chain_depth(np, cols[0])
+            chain_ms = depth * trip_ns * 1e-6
+            line += (f", chain depth {depth}, {seqs.shape[1] / depth:.2f} "
+                     f"sequences per step, chain bound {chain_ms:.4f} ms "
+                     f"(depth x {trip_ns:.3f} ns)")
+        print(f"{line} [{name_card}]", flush=True)
+    need(ch.shape[0] == 1, "src1m is not one chain")
     record("segment_decode", err, ms, plain_ms, bound, "bytes", shape,
            plain_shape=plain_shape)
+    rows["segment_decode"]["chain_ms"] = chain_ms
     return rows
 
 
@@ -723,13 +874,9 @@ def decompress_device_path(torch, np, lt, tpl, _kernels, corp, dev,
              f"{name}: decompress_device ran {st.engine_chains}")
         print(f"[device] {name}: engine='auto' {ms:.3f} ms, device_s "
               f"{1e3 * st.device_s:.3f} ms [{name_card}]", flush=True)
-    indep = frag_text(np, 2 << 20, 8192, 3, 8, 14)
-    cases = [("src1m", corp["src1m"][0], corp["src1m"][1]),
-             ("frag1m", corp["frag1m"][0], corp["frag1m"][1]),
-             ("indep2m (32 chains)",
-              lt.compress(indep, block_max_code=4, block_independence=True),
-              indep)]
-    for name, data, blob in cases:
+    for name, data, blob in segment_shapes(np, lt, corp):
+        if name.startswith("frag32m"):
+            continue            # 512 chains: the kernel phase's shape
         n0 = _kernels.LAUNCHES["segment_decode"]
         out, ms = timed(lambda: lt.decompress_device(data, engine="pallas"))
         need(out == blob, f"{name}: engine='pallas' differs from the "
@@ -1165,6 +1312,44 @@ def staging_phase(torch, np, dev, name_card):
           + f" (host clock, median of 7, in turns) [{name_card}]", flush=True)
 
 
+def busy_phase(torch, lt, corp, name_card, calls=3):
+    """Device busy share of decompress_to_device(verify="host"): the
+    time the profiler saw the card work (kernels and copies) over the
+    host-clock time of ``calls`` synchronised calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name in ("frag1m", "src1m", "frag32m"):
+        data = corp[name][0]
+        lt.decompress_to_device(data)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                lt.decompress_to_device(data)
+                torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+
+        # rows of the card's own activity (kernels, copies); a host-side
+        # operator's row repeats the device time of what it launched
+        events = [e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        busy_ms = sum(dev_us(e) for e in events) / 1e3
+        top = sorted(events, key=lambda e: -dev_us(e))[:3]
+        if busy_ms <= 0:
+            print(f"[busy] {name}: the profiler recorded no device time; "
+                  "busy share not measured", flush=True)
+            continue
+        print(f"[busy] {name}: device busy {busy_ms:.3f} ms of "
+              f"{wall_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}% over "
+              f"{calls} calls of decompress_to_device(verify='host'); most: "
+              + ", ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms"
+                          for e in top) + f" [{name_card}]", flush=True)
+
+
 def error_phase(lt, corp):
     block = bytearray(corp["frag2m-bsum"][0])
     block[300] ^= 0x20          # inside block 0, under its checksum
@@ -1254,9 +1439,14 @@ def main() -> int:
     need(pathlib.Path(native._SRC).resolve()
          == HERE / "lz4tpu_torch" / "native" / "lz4core.cpp",
          f"native engine built from {native._SRC}")
-    ptxas = [ln.strip() for ln in
-             (_kernels.BUILD_DIR / "nvcc.log").read_text().splitlines()
-             if "Used" in ln]
+    # ptxas names a kernel ("Compiling entry function '<mangled>'") and
+    # then says what it uses
+    ptxas, entry = [], "?"
+    for ln in (_kernels.BUILD_DIR / "nvcc.log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            entry = kernel_name(ln.split("'")[1])
+        elif "Used" in ln:
+            ptxas.append(f"{entry}: " + ln.split(":", 1)[1].strip())
     print(f"[build] CUDA kernels {t1 - t0:.2f} s (nvcc, sm_90a, one process "
           f"per source), native engine {t2 - t1:.2f} s", flush=True)
     for ln in ptxas:
@@ -1283,6 +1473,7 @@ def main() -> int:
     verify_compare(torch, lt, corp, card)
     sustained_phase(torch, np, lt, tpl, corp, card)
     staging_phase(torch, np, dev, card)
+    busy_phase(torch, lt, corp, card)
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     for name, n in launches.items():
         need(n > 0, f"kernel {name} was never launched by a path")

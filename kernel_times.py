@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Times of ``segment_decode`` and ``fused_route`` in two checkouts, in
+turns on one card.
+
+Run from the root of a checkout on a machine with a GPU::
+
+    python kernel_times.py --turns OLD_TREE NEW_TREE
+
+measures OLD, NEW, NEW, OLD, each in a process of its own that imports
+``lz4tpu_torch`` from that tree (and builds its kernels there), and
+prints every time with the card's name and power limit.  The inputs are
+the same for both: the seeded corpora of the ``chip_smoke.py`` beside
+this script.  ``--tree PATH`` measures one tree and prints one JSON
+object.
+
+Measured: ``segment_decode`` (CUDA events behind a spin kernel, median
+of 5) on the shapes ``chip_smoke.segment_shapes`` names: src1m and
+frag1m (one chain each), indep2m (32 chains of 64 KiB) and frag32m in
+independent 64 KiB blocks (512 chains); ``fused_route`` (median of 20)
+on frag1m's one chain and on frag32m-indep's 8 chains in one launch; and
+the ``engines`` stage of ``decompress_to_device`` on frag32m and
+frag32m-indep (host clock, synchronised, median of 5).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+import chip_smoke as cs
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+
+def measure(tree: pathlib.Path) -> dict:
+    sys.path.insert(0, str(tree))
+    import numpy as np
+    import torch
+
+    import lz4tpu_torch as lt
+    import lz4tpu_torch.pipeline as tpl
+    from lz4tpu_torch.device import fused as fu
+    from lz4tpu_torch.device import segment_decode as sg
+    from lz4tpu_torch.device import to_device
+    from lz4tpu_torch.device.ring import part_segments, segments_tensor
+
+    origin = pathlib.Path(lt.__file__).resolve().parent.parent
+    if origin != tree.resolve():
+        raise SystemExit(f"lz4tpu_torch came from {origin}, not {tree}")
+    dev = torch.device("cuda", 0)
+    out = {"tree": str(tree), "card": cs.card_line()}
+    corp = cs.corpora(np, lt)
+
+    for name, data, blob in cs.segment_shapes(np, lt, corp):
+        buf, parsed, table, _plan, _st = cs.plan_of(np, lt, tpl, data)
+        chains = [c for c in tpl._chains_of(table) if c.out_hi > c.out_lo]
+        cols, rws = tpl._segment_tables(parsed, table, chains)
+        comp = to_device(buf, dev)
+        # the tables, and what else pack_chains hands to segment_decode
+        # behind zero_fill (the longest chain, in a tree that sizes its
+        # ring by it)
+        seqs, ch, total, *rest = sg.pack_chains(cols, rws, comp.shape[0],
+                                                dev)
+
+        def run():
+            return sg.segment_decode(comp, seqs, ch, total, False, *rest)
+
+        got = run()
+        torch.cuda.synchronize()
+        if got.cpu().numpy().tobytes() != blob:
+            raise SystemExit(f"segment_decode: {name} differs")
+        out[f"segment_decode {name} ({ch.shape[0]} chains)"] = cs.cuda_ms(
+            torch, run, 5)
+
+    for name in ("frag1m", "frag32m-indep"):
+        _b, _p, _t, plan, _s = cs.plan_of(np, lt, tpl, corp[name][0])
+        prep = plan.fused_prep
+        n = prep.n_sub
+        t = {k: to_device(np.ascontiguousarray(getattr(prep, k)[:n]), dev)
+             for k in ("seqrec", "scal", "patch", "winq")}
+        lits = to_device(prep.lits, dev)
+        segs = segments_tensor(part_segments(prep.out_spans, 0, n, False),
+                               dev)
+        pos = fu.expand(t["seqrec"], t["scal"], t["patch"])
+        out[f"fused_route {name} ({segs.shape[0]} chains, {n} substeps)"] = \
+            cs.cuda_ms(torch, lambda: fu.route(
+                pos, lits, t["winq"], t["scal"], segs), 20)
+        del pos
+
+    for name in ("frag32m", "frag32m-indep"):
+        data = corp[name][0]
+        cs.stages_of(torch, np, lt, tpl, data, dev, "device")
+        out[f"engines stage {name}"] = statistics.median(
+            cs.stages_of(torch, np, lt, tpl, data, dev, "device")["engines"]
+            for _ in range(5))
+    return out
+
+
+def turns(old: pathlib.Path, new: pathlib.Path) -> int:
+    runs = []
+    for label, tree in (("old", old), ("new", new), ("new", new),
+                        ("old", old)):
+        r = subprocess.run(
+            [sys.executable, __file__, "--tree", str(tree)],
+            capture_output=True, text=True, check=False)
+        if r.returncode != 0:
+            print(r.stdout, r.stderr, file=sys.stderr)
+            return 1
+        runs.append((label, json.loads(r.stdout.strip().splitlines()[-1])))
+    card = runs[0][1]["card"]
+    for key in runs[0][1]:
+        if key in ("tree", "card"):
+            continue
+        print(f"[turns] {key}: " + ", ".join(
+            f"{label} {res[key]:.4f}" for label, res in runs)
+            + f" ms (old, new, new, old) [{card}]", flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", type=pathlib.Path)
+    ap.add_argument("--turns", nargs=2, type=pathlib.Path,
+                    metavar=("OLD_TREE", "NEW_TREE"))
+    args = ap.parse_args()
+    if args.turns:
+        return turns(*args.turns)
+    print(json.dumps(measure(args.tree or ROOT)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

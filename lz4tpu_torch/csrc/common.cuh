@@ -33,6 +33,38 @@ __device__ __forceinline__ void ring_store(const uint4* ring4, uint8_t* ring_out
   for (int k = threadIdx.x; k < RING / 16; k += blockDim.x) dst[k] = ring4[k];
 }
 
+// Four bytes of shared memory at byte offsets u0..u3 from `sm`, packed
+// little-endian: the route kernels' gather.  Four one-byte loads: on this
+// card a route's substep is bound by the instructions its warps execute and
+// by its barriers before it is bound by shared-memory wavefronts, and a
+// gather of aligned words (two 32-bit loads, byte extraction, a one-byte
+// load for what lies outside) measured slower than this.
+__device__ __forceinline__ uint32_t gather4(const uint8_t* sm, int u0, int u1,
+                                            int u2, int u3) {
+  return uint32_t(sm[u0]) | uint32_t(sm[u1]) << 8 | uint32_t(sm[u2]) << 16 |
+         uint32_t(sm[u3]) << 24;
+}
+
+// 16 bytes from device memory to shared memory without passing through
+// registers; completion is awaited per group (cp_async_wait).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   unsigned(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's committed groups are
+// still in flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
+}
+
 }  // namespace lz4t
 
 LZ4T_API const char* lz4t_error_string(int status);

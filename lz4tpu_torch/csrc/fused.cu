@@ -17,16 +17,23 @@
 //   substep.  Design: the TPU needed one-hot matmuls over bf16 digit
 //   planes to scatter; here atomics on shared memory scatter directly.
 //
-// route: one block per chain segment.  The 64 KiB ring lives in dynamic
-//   shared memory (plus the 4 KiB literal window), the block walks its
-//   substeps in order, gathers 2048 bytes per substep from ring or
-//   window, writes them out and into ring rows scal[i,0].  Bound on an
-//   H100: the serial substep loop of one chain runs on one SM, with two
-//   block barriers and dependent shared-memory gathers per substep, so
-//   a single-chain input uses 1 of 132 SMs.  Design: ring and window
-//   never leave shared memory; each thread gathers 4 bytes from one
-//   16-byte pos17 load and stores them as one 32-bit word.  Parallelism
-//   comes from independent chains (one block each).
+// route: one block per chain segment.  The block walks its substeps in
+//   order, gathers 2048 bytes per substep from ring or literal window,
+//   writes them out and into ring rows scal[i,0].  Bound on an H100: not
+//   bytes (12 KiB in and 2 KiB out a substep would take nanoseconds) but
+//   the serial substep loop of one chain on one SM: a substep reads what
+//   the one before it wrote, so its time is two block barriers (0.14 us
+//   for 16 warps), the copy of its 12 KiB into shared memory and the
+//   byte gather.  Design: nothing is read from device memory inside the
+//   loop.  cp.async keeps the next STAGES substeps' pos17 (8 KiB) and
+//   literal window (4 KiB) in shared-memory stages beside the 64 KiB
+//   ring; the scalars that give a window's address and a substep's ring
+//   row are staged in shared memory SCAL_CHUNK substeps at a time, half
+//   a chunk ahead, so no load waits on another.  The windows lie right
+//   behind the ring, so a source is one shared-memory offset and the
+//   ring-or-window choice a select.  Each thread gathers 4 bytes and
+//   stores one 32-bit word.  Parallelism comes from independent chains
+//   (one block each).
 #include "common.cuh"
 
 namespace {
@@ -40,7 +47,13 @@ constexpr int U_BIAS = RING - SUB; // literal pos17 = j + U + U_BIAS
 constexpr int EXPAND_THREADS = 256;
 constexpr int PER_T = SUB / EXPAND_THREADS;  // 8 consecutive bytes a thread
 constexpr int NWARP = EXPAND_THREADS / 32;
-constexpr int ROUTE_SMEM = RING + WIN;
+constexpr int STAGES = 4;           // substeps in flight in the route
+constexpr int SCAL_CHUNK = 128;     // substeps of scalars staged at once
+// route shared memory: ring | STAGES windows | STAGES pos17 | 2 chunks of
+// scalars (window index, window row, ring row, -) as int4
+constexpr int ROUTE_POS = RING + STAGES * WIN;
+constexpr int ROUTE_SCAL = ROUTE_POS + STAGES * SUB * 4;
+constexpr int ROUTE_SMEM = ROUTE_SCAL + 2 * SCAL_CHUNK * 16;
 
 __device__ __forceinline__ int digit(uint32_t r, int shift) {
   return int((r >> shift) & 255u) - 128;
@@ -151,9 +164,10 @@ fused_expand_kernel(const uint32_t* __restrict__ seqrec,
   for (int k = t; k < SUB / 4; k += EXPAND_THREADS) dst[k] = src[k];
 }
 
-__device__ __forceinline__ uint32_t pick(int p, const uint8_t* ring,
-                                         const uint8_t* win) {
-  return p >= RING ? win[min(p - RING, WIN - 1)] : ring[max(p, 0)];
+// A pos17 source as a shared-memory offset: the ring below RING, the
+// stage's window (at RING + woff) above.
+__device__ __forceinline__ int unified(int p, int woff) {
+  return p < RING ? max(p, 0) : min(p, RING + WIN - 1) + woff;
 }
 
 // segs[3*s..3*s+2] = (first substep, end substep, carry ring_in)
@@ -167,28 +181,72 @@ fused_route_kernel(const int4* __restrict__ pos17,
                    uint8_t* __restrict__ out, uint8_t* __restrict__ ring_out,
                    int n_seg) {
   extern __shared__ uint4 smem4[];
-  uint8_t* ring = reinterpret_cast<uint8_t*>(smem4);
-  uint8_t* win = ring + RING;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+  int4* s_scal = reinterpret_cast<int4*>(smem + ROUTE_SCAL);
   const int s = blockIdx.x;
   const int t = threadIdx.x;
   const int lo = segs[3 * s];
   const int hi = segs[3 * s + 1];
+
+  // scalars: chunk c (substeps lo + c*SCAL_CHUNK ...) goes through
+  // registers into half c&1 of s_scal, fetched a chunk and a half ahead
+  int4 chunk = make_int4(0, 0, 0, 0);
+  auto fetch = [&](int c) {
+    const int i = lo + c * SCAL_CHUNK + t;
+    if (t < SCAL_CHUNK && i < hi)
+      chunk = make_int4(winq[i], scal[size_t(i) * 8 + 1],
+                        scal[size_t(i) * 8], 0);
+  };
+  auto put = [&](int c) {
+    if (t < SCAL_CHUNK) s_scal[(c & 1) * SCAL_CHUNK + t] = chunk;
+  };
+  auto scalars = [&](int k) -> int4 {     // of substep lo + k
+    return s_scal[((k / SCAL_CHUNK) & 1) * SCAL_CHUNK + k % SCAL_CHUNK];
+  };
+  // start substep i's copies into its stage; one group a substep, empty
+  // beyond the segment so that the group count stays in step
+  auto start_copies = [&](int i) {
+    if (i < hi) {
+      const int slot = (i - lo) % STAGES;
+      const int4 sc = scalars(i - lo);
+      cp_async16(smem + ROUTE_POS + slot * (SUB * 4) + t * 16,
+                 pos17 + size_t(i) * (SUB / 4) + t);
+      if (t < WIN / 16)
+        cp_async16(smem + RING + slot * WIN + t * 16,
+                   lits + size_t(sc.x) * WIN_STRIDE + size_t(sc.y) * ROWB +
+                       t * 16);
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+  put(0);
+  fetch(1);
   ring_init(smem4, ring_in, segs[3 * s + 2] != 0 && ring_in != nullptr);
+  __syncthreads();
+  for (int d = 0; d < STAGES - 1; ++d) start_copies(lo + d);
 
   for (int i = lo; i < hi; ++i) {
-    const int32_t* sc = scal + size_t(i) * 8;
-    const uint4* wsrc = reinterpret_cast<const uint4*>(
-        lits + size_t(winq[i]) * WIN_STRIDE + size_t(sc[1]) * ROWB);
-    if (t < WIN / 16) reinterpret_cast<uint4*>(win)[t] = wsrc[t];
-    __syncthreads();  // window loaded, last substep's ring rows written
-    const int4 p = pos17[size_t(i) * (SUB / 4) + t];
-    const uint32_t val = pick(p.x, ring, win) | pick(p.y, ring, win) << 8 |
-                         pick(p.z, ring, win) << 16 | pick(p.w, ring, win) << 24;
+    const int k = i - lo;
+    const int slot = k % STAGES;
+    cp_async_wait<STAGES - 2>();  // this thread's copies of substep i
+    __syncthreads();  // everyone's; and last substep's ring rows written
+    if (k % SCAL_CHUNK == SCAL_CHUNK / 2) {
+      put(k / SCAL_CHUNK + 1);
+      fetch(k / SCAL_CHUNK + 2);
+    }
+    start_copies(i + STAGES - 1);   // into the stage substep i-1 has left
+    const int4 p =
+        reinterpret_cast<const int4*>(smem + ROUTE_POS + slot * (SUB * 4))[t];
+    const int woff = slot * WIN;
+    const uint32_t val =
+        gather4(smem, unified(p.x, woff), unified(p.y, woff),
+                unified(p.z, woff), unified(p.w, woff));
+    const int row = scalars(k).z & 255;
     __syncthreads();  // every gather of this substep read the old ring
-    const int row = sc[0] & 255;
-    reinterpret_cast<uint32_t*>(ring + row * ROWB)[t] = val;
+    reinterpret_cast<uint32_t*>(smem + row * ROWB)[t] = val;
     reinterpret_cast<uint32_t*>(out + size_t(i) * SUB)[t] = val;
   }
+  cp_async_wait<0>();
   __syncthreads();
   if (s == n_seg - 1) ring_store(smem4, ring_out);
 }

@@ -3,9 +3,12 @@
 LZ4 decode *is* a list of contiguous copies: per sequence one literal
 copy from the compressed buffer and one match copy from the output's
 own recent bytes.  Kernel H6 (``csrc/segment.cu``) walks each chain's
-sequences in order, one chain per thread block, every copy spread over
-the block's threads; :func:`segment_decode_plain` is its plain PyTorch
-version, taken only for CPU tensors.
+sequences in order, one chain per thread block, the chain's last 64 KiB
+and the tile being built in a shared-memory ring: seven warps bring
+literals in, expand the matches into a per-byte offset map and store
+finished tiles, while one warp resolves the matches from that map, a
+lane a byte; :func:`segment_decode_plain` is its plain PyTorch version,
+taken only for CPU tensors.
 
 The JAX package's kernel keeps compressed and decoded bytes as int32
 word rows with a +512 B coordinate shift and slack rows, and caps a
@@ -26,9 +29,27 @@ from .. import _kernels
 from . import to_device
 
 
+#: Ring sizes of kernel H6 (bytes of shared memory a block takes).
+RING_SIZES = (1 << 16, 1 << 17)
+
+
+def ring_bytes_for(max_chain: int | None) -> int:
+    """The kernel's ring for a launch whose longest chain decodes to
+    ``max_chain`` bytes: 64 KiB where that holds every chain whole (an
+    LZ4 block of 64 KiB: two such blocks share an SM), and 128 KiB (64
+    KiB of history beside the tiles in flight) for a longer or unknown
+    one.  The smaller ring must hold its whole chain."""
+    if max_chain is not None:
+        for size in RING_SIZES:
+            if max_chain <= size:
+                return size
+    return RING_SIZES[-1]
+
+
 def segment_decode(comp: torch.Tensor, seqs: torch.Tensor,
                    chains: torch.Tensor, n_out: int,
-                   zero_fill: bool = True) -> torch.Tensor:
+                   zero_fill: bool = True,
+                   max_chain: int | None = None) -> torch.Tensor:
     """Decode every chain of a sequence table: uint8 ``(n_out,)``.
 
     ``seqs``: int32 ``(5, S)`` rows dst, lit_src, lit_len, match_off,
@@ -40,7 +61,14 @@ def segment_decode(comp: torch.Tensor, seqs: torch.Tensor,
     ``md = base + dst + lit_len``.  Bytes no sequence writes are 0;
     a caller whose sequences write every byte (:func:`covers`) passes
     ``zero_fill=False`` and saves the pass that clears the output.
-    The table must be in range (:func:`decode_chains_device` checks)."""
+    ``max_chain`` is the longest chain's decoded size as
+    :func:`pack_chains` returns it with the tables: it lets a launch of
+    short chains take the small ring (:func:`ring_bytes_for`).  A
+    caller that packs its own tables leaves it ``None``; a number below
+    the longest chain would let the ring overwrite history that a match
+    still reads.
+    The table must be in range and in output order
+    (:func:`pack_chains` checks)."""
     if comp.device.type == "cpu":
         return segment_decode_plain(comp, seqs, chains, n_out)
     dev = comp.device
@@ -55,7 +83,7 @@ def segment_decode(comp: torch.Tensor, seqs: torch.Tensor,
     _kernels.launch(
         "segment_decode", "lz4t_segment_decode", dev,
         comp.data_ptr(), seqs.data_ptr(), s, chains.data_ptr(), c,
-        out.data_ptr())
+        out.data_ptr(), ring_bytes_for(max_chain))
     return out
 
 
@@ -104,6 +132,11 @@ def _check_chain(k: int, cols, n_seqs: int, comp_base: int, out_base: int,
     )
     if bad:
         raise ValueError(f"chain {k}: sequence table out of range")
+    # the kernel builds the output tile by tile: a sequence starts at or
+    # after the end of the one before it (gaps are allowed and read 0)
+    if (dst[1:] < (md + match_len)[:-1]).any():
+        raise ValueError(f"chain {k}: sequences must be in output order "
+                         "without overlap")
 
 
 def covers(cols: list, rows: list) -> bool:
@@ -133,8 +166,12 @@ def pack_chains(cols: list, rows: list, comp_size: int, device):
     ``k``'s five int32 numpy columns (dst chain-local, lit_src relative
     to ``comp_base``, lit_len, match_off, match_len); ``rows[k] =
     (n_seqs, comp_base, out_base, n_out)``.  Returns ``(seqs, chains,
-    total)`` for :func:`segment_decode`.  Raises ``ValueError`` when a
-    copy would leave the buffers."""
+    total, max_chain)`` for :func:`segment_decode`, ``max_chain`` being
+    the largest ``n_out``.  Raises ``ValueError`` when a
+    copy would leave the buffers, or when a chain's sequences are not
+    in output order (an LZ4 table always is; gaps between sequences are
+    admitted and decode to 0, match offsets beyond 65,535 are admitted
+    too)."""
     total = max((base + n for _s, _c, base, n in rows), default=0)
     table, seq_lo = [], 0
     for k, (chain_cols, (n_seqs, cbase, obase, n_loc)) in enumerate(
@@ -148,7 +185,8 @@ def pack_chains(cols: list, rows: list, comp_size: int, device):
                                  or [np.zeros(0, np.int32)])
     chains = torch.tensor(table, dtype=torch.int32,
                           device=device).reshape(-1, 4)
-    return to_device(seqs, device), chains, total
+    longest = max((n for _s, _c, _base, n in rows), default=0)
+    return to_device(seqs, device), chains, total, longest
 
 
 def decode_chains_device(comp: torch.Tensor, cols: list,
@@ -156,10 +194,11 @@ def decode_chains_device(comp: torch.Tensor, cols: list,
     """Decode several chains in one launch (arguments as
     :func:`pack_chains`); returns the uint8 tensor that holds chain
     ``k`` at ``[out_base, out_base + n_out)``."""
-    seqs, chains, total = pack_chains(cols, rows, comp.shape[0],
-                                      comp.device)
+    seqs, chains, total, longest = pack_chains(cols, rows, comp.shape[0],
+                                               comp.device)
     return segment_decode(comp, seqs, chains, total,
-                          zero_fill=not covers(cols, rows))
+                          zero_fill=not covers(cols, rows),
+                          max_chain=longest)
 
 
 def decode_chain_device(

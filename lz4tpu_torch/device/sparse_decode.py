@@ -273,6 +273,12 @@ def decode_sparse_device(program: SparseProgram,
 
 
 def decode_sparse(program: SparseProgram, buf: np.ndarray,
-                  device="cpu") -> bytes:
-    out = decode_sparse_device(program, to_device(buf, device))
+                  device="cuda") -> bytes:
+    """Run ``program`` over ``buf`` on ``device`` and return the bytes.
+    The default ``"cuda"`` raises where CUDA is absent; ``"cpu"`` takes
+    the plain path."""
+    from ..pipeline import _resolve_device
+
+    dev = _resolve_device(device)
+    out = decode_sparse_device(program, to_device(buf, dev))
     return out[:program.n_out].cpu().numpy().tobytes()

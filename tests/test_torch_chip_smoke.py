@@ -79,7 +79,8 @@ def test_kernel_table_names_every_kernel_of_the_port():
                                    "decompress_device_path", "ab_path",
                                    "pipelined_path", "session_path",
                                    "verify_compare", "sustained_phase",
-                                   "staging_phase", "error_phase",
+                                   "staging_phase", "busy_phase",
+                                   "error_phase",
                                    "small_fetch_phase"])
 def test_main_drives_every_phase(phase):
     smoke = _smoke()
@@ -116,3 +117,44 @@ def test_session_counts_hold_only_the_sessions_launches():
     for call in ("_decompress_to_device_batch(", "decompress_to_device(",
                  "decompress_device("):
         assert call not in body, call
+
+
+def test_segment_shapes_are_shared_by_kernel_phase_and_device_path():
+    """The four H6 shapes are made in one place: small stand-ins for the
+    corpora go in, names and independent 64 KiB blocks come out."""
+    import inspect
+
+    import numpy as np
+
+    import lz4tpu_torch as lt
+
+    smoke = _smoke()
+    text = smoke.frag_text(np, 200_000, 512, 3, 8, 1)
+    corp = {k: (lt.compress(text), text) for k in ("frag1m", "src1m",
+                                                   "frag32m")}
+    shapes = smoke.segment_shapes(np, lt, corp)
+    assert [s[0] for s in shapes] == [
+        "frag1m", "indep2m", "frag32m in independent 64 KiB blocks", "src1m"]
+    for _name, data, blob in shapes:
+        assert lt.decompress(data) == blob
+    assert len(shapes[1][2]) == 2 << 20
+    blocks = lt.frame.parse_frames(np.frombuffer(shapes[2][1], np.uint8),
+                                   lt.FOR_ALL).frames[0].blocks
+    assert len(blocks) == -(-len(text) // 65536)
+    for fn in ("kernel_phase", "decompress_device_path"):
+        assert "segment_shapes(np, lt, corp)" in inspect.getsource(
+            getattr(smoke, fn))
+
+
+def test_kernel_times_takes_its_inputs_from_chip_smoke():
+    """The in-turns timing script lies beside chip_smoke.py, imports
+    neither JAX nor the JAX package, and declares no corpus of its own."""
+    src = (REPO / "kernel_times.py").read_text()
+    assert "import chip_smoke as cs" in src
+    assert "cs.corpora(np, lt)" in src and "cs.segment_shapes(" in src
+    for word in ("import jax", "lz4tpu.", "import lz4tpu\n", "frag_text(",
+                 "default_rng"):
+        assert word not in src, word
+    r = subprocess.run([sys.executable, "kernel_times.py", "--help"],
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and "--turns" in r.stdout

@@ -27,6 +27,7 @@ from lz4tpu_torch.device.ring import (
     ring_to_jax,
     segments_tensor,
 )
+from lz4tpu_torch.exp import edge
 
 
 def _frag_text(n: int, seed: int, n_frag: int = 8192, lo: int = 3,
@@ -248,3 +249,191 @@ def test_decode_split_matches_jax_split_kernels(seeded):
     assert np.array_equal(rows_t.numpy(), flat_j)
     assert torch.equal(ring_out_t, ring_from_jax(ring_out_j))
     assert rows_t.numpy()[:len(blob)].tobytes() == blob
+
+
+# ---------------------------------------------------------------------------
+# the route at the edges of its gather: words, runs, ring end, ring carry
+# ---------------------------------------------------------------------------
+
+def _gather_edges(pos: np.ndarray) -> dict:
+    """How many threads (four consecutive bytes each) hold each edge."""
+    p = pos.reshape(-1, 4).astype(np.int64)
+    consecutive = (np.diff(p, axis=1) == 1).all(1)
+    in_win = p >= 65536
+    return {
+        # one run, not word-aligned: its bytes lie in two 32-bit words
+        "straddles_word": int((consecutive & (p[:, 0] % 4 != 0)).sum()),
+        "run_ends_inside": int((~consecutive).sum()),
+        # ring sources and window sources in one thread
+        "ring_and_window": int((in_win.any(1) & ~in_win.all(1)).sum()),
+        # consecutive in pos17 over the ring's end: 65535 then 65536
+        "over_ring_end": int(((p[:, :-1] == 65535)
+                              & (p[:, 1:] == 65536)).any(1).sum()),
+    }
+
+
+def _route_args(case):
+    pos, lits, winq, scal = case
+    return (torch.from_numpy(pos), torch.from_numpy(lits),
+            torch.from_numpy(winq), torch.from_numpy(scal))
+
+
+def _jax_route(case, ring_in=None, lo=0, hi=None):
+    """The JAX package's routing kernel alone (``_make_route_kernel``
+    under the second ``pallas_call`` of ``_decode_split_device``), in
+    interpret mode, on substeps ``[lo, hi)`` of a route case as one
+    chain: ``(rows, ring)`` as flat uint8 numpy arrays."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    pos, lits, winq, scal = case
+    hi = pos.shape[0] if hi is None else hi
+    n = hi - lo
+    scal8 = np.zeros((-(-n // 8) * 8, 8), np.int32)
+    scal8[:n] = scal[lo:hi]
+    ring = np.zeros(65536, np.uint8) if ring_in is None else ring_in
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1,
+        grid=(n,),
+        in_specs=[
+            pl.BlockSpec((jfu.NCHUNK, jfu.CHUNK), lambda i, wq: (i, 0)),
+            pl.BlockSpec((1, 32, 256), lambda i, wq: (wq[i], 0, 0)),
+            pl.BlockSpec((8, 8), lambda i, wq: (i // 8, 0),
+                         memory_space=pltpu.SMEM),
+            pl.BlockSpec((jfu.RPAGES, jfu.ROWB), lambda i, wq: (0, 0)),
+        ],
+        out_specs=(
+            pl.BlockSpec((jfu.SUB // 128, 128), lambda i, wq: (i, 0)),
+            pl.BlockSpec((jfu.RPAGES, jfu.ROWB), lambda i, wq: (0, 0)),
+        ),
+        scratch_shapes=[pltpu.VMEM((jfu.KPAGES, jfu.ROWB), jnp.bfloat16)],
+    )
+    rows, ring_out = pl.pallas_call(
+        jfu._make_route_kernel(),
+        grid_spec=grid_spec,
+        out_shape=(
+            jax.ShapeDtypeStruct((n * jfu.SUB // 128, 128), jnp.bfloat16),
+            jax.ShapeDtypeStruct((jfu.RPAGES, jfu.ROWB), jnp.bfloat16),
+        ),
+        interpret=True,
+    )(jnp.asarray(winq[lo:hi]),
+      jnp.asarray(pos[lo:hi].reshape(n * jfu.NCHUNK, jfu.CHUNK)),
+      jnp.asarray(lits), jnp.asarray(scal8),
+      jnp.asarray(ring.reshape(jfu.RPAGES, jfu.ROWB).astype(np.float32),
+                  jnp.bfloat16))
+
+    def to_u8(x):
+        return np.asarray(jax.device_get(x), np.float32).astype(
+            np.uint8).reshape(-1)
+
+    return to_u8(rows), to_u8(ring_out)
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero_ring", "seeded"])
+def test_route_plain_on_edge_sources_matches_reference(seeded):
+    """Sources that straddle a 4-byte word, end a run inside a thread,
+    mix ring and window, or run over the ring's end into the window:
+    the plain route, the numpy reference and the JAX package's routing
+    kernel give the same rows and the same ring."""
+    case = edge.route_case()
+    n = case[0].shape[0]
+    assert all(v > 20 for v in _gather_edges(case[0]).values())
+    assert case[0].max() == 65536 + 4095 and case[0].min() == 0
+    ring_in = (np.random.default_rng(9).integers(0, 256, 65536,
+                                                 dtype=np.uint8)
+               if seeded else None)
+    segs = [(0, n, int(seeded))]
+    rows, ring = tfu.route(
+        *_route_args(case), segments_tensor(segs, "cpu"),
+        torch.from_numpy(ring_in) if seeded else None)
+    want_rows, want_ring = edge.ref_route(*case, segs, ring_in)
+    assert np.array_equal(rows.numpy(), want_rows)
+    assert np.array_equal(ring.numpy(), want_ring)
+    rows_j, ring_j = _jax_route(case, ring_in)
+    assert np.array_equal(rows.numpy(), rows_j)
+    assert np.array_equal(ring.numpy(), ring_j)
+
+
+@pytest.mark.parametrize("cut", [1, 17, 39])
+def test_route_ring_carried_across_two_segments(cut):
+    """Substeps [0, cut) and [cut, n) as two launches, the first one's
+    ring seeding the second, equal one launch over [0, n); and one
+    launch of two segments decodes each from its own start (the second
+    from zeros, or from ``ring_in`` when it carries)."""
+    case = edge.route_case()
+    args = _route_args(case)
+    n = case[0].shape[0]
+    whole, ring_whole = tfu.route(*args, segments_tensor([(0, n, 0)], "cpu"))
+
+    def part(lo, hi, ring):
+        pos, lits, winq, scal = args
+        return tfu.route(pos[lo:hi], lits, winq[lo:hi], scal[lo:hi],
+                         segments_tensor([(0, hi - lo, int(ring is not None))],
+                                         "cpu"), ring)
+
+    rows1, ring1 = part(0, cut, None)
+    rows2, ring2 = part(cut, n, ring1)
+    assert torch.equal(torch.cat([rows1, rows2]), whole)
+    assert torch.equal(ring2, ring_whole)
+    # the JAX package's routing kernel, its ring carried the same way
+    rows1_j, ring1_j = _jax_route(case, None, 0, cut)
+    rows2_j, ring2_j = _jax_route(case, ring1_j, cut, n)
+    assert np.array_equal(rows1.numpy(), rows1_j)
+    assert np.array_equal(ring1.numpy(), ring1_j)
+    assert np.array_equal(rows2.numpy(), rows2_j)
+    assert np.array_equal(ring2.numpy(), ring2_j)
+    ring_in = np.random.default_rng(cut).integers(0, 256, 65536,
+                                                  dtype=np.uint8)
+    for carry in (0, 1):
+        segs = [(0, cut, 0), (cut, n, carry)]
+        rows, ring = tfu.route(*args, segments_tensor(segs, "cpu"),
+                               torch.from_numpy(ring_in))
+        want_rows, want_ring = edge.ref_route(*case, segs, ring_in)
+        assert np.array_equal(rows.numpy(), want_rows)
+        assert np.array_equal(ring.numpy(), want_ring)
+
+
+def test_route_clamps_sources_outside_the_17_bit_space():
+    """No prep makes a source below 0 or past the window's end.  The
+    plain route reads such a source as ``golden_decode`` does, clamped
+    to ring byte 0 or to the window's last byte; the JAX package's
+    routing kernel, whose one-hot page match finds no page for it, reads
+    0 there.  Shown on the first substep, before the difference spreads
+    through the ring."""
+    case = edge.route_case(n_sub=8, stray=True)
+    pos, lits, winq, scal = case
+    ring_in = np.random.default_rng(9).integers(1, 256, 65536,
+                                                 dtype=np.uint8)
+    segs = [(0, 8, 1)]
+    rows, ring = tfu.route(*_route_args(case), segments_tensor(segs, "cpu"),
+                           torch.from_numpy(ring_in))
+    want_rows, want_ring = edge.ref_route(*case, segs, ring_in)
+    assert np.array_equal(rows.numpy(), want_rows)
+    assert np.array_equal(ring.numpy(), want_ring)
+    first = pos[0].astype(np.int64)
+    below, above = first < 0, first >= 65536 + 4096
+    assert below.sum() == 8 and above.sum() == 8
+    got = rows.numpy()[:tfu.SUB]
+    win = lits.reshape(lits.shape[0], -1)[winq[0]][
+        scal[0, 1] * 256: scal[0, 1] * 256 + 4096]
+    assert (got[below] == ring_in[0]).all() and (got[above] == win[-1]).all()
+    rows_j, _ring_j = _jax_route(case, ring_in)
+    inside = ~(below | above)
+    assert np.array_equal(rows_j[:tfu.SUB][inside], got[inside])
+    assert not rows_j[:tfu.SUB][below | above].any()
+
+
+def test_real_prep_holds_the_gather_edges_and_matches_golden():
+    """A real fused prep has threads whose sources straddle a word, end
+    a run and mix ring with window; its routed bytes equal
+    ``golden_decode``'s."""
+    _blob, prep_t, prep_j = _single(64 << 10)
+    n = prep_t.n_sub
+    pos = tfu.expand(torch.from_numpy(prep_t.seqrec[:n]),
+                     torch.from_numpy(prep_t.scal[:n]),
+                     torch.from_numpy(prep_t.patch[:n]))
+    found = _gather_edges(pos.numpy())
+    for k in ("straddles_word", "run_ends_inside", "ring_and_window"):
+        assert found[k] > 100, (k, found)
+    flat, _ring = _rows(prep_t)
+    assert np.array_equal(flat, jfu.golden_decode(prep_j))

@@ -19,6 +19,7 @@ from lz4tpu_torch.device import segment_decode as tsg
 from lz4tpu_torch.device import sparse_decode as tsp
 from lz4tpu_torch.device import xxh32_cuda as txx
 from lz4tpu_torch.device.ring import part_segments, segments_tensor
+from lz4tpu_torch.exp import edge
 
 pytestmark = pytest.mark.cuda
 
@@ -193,9 +194,10 @@ def test_segment_decode_kernel(cuda, kind):
     chains = [c for c in tpl._chains_of(table) if c.out_hi > c.out_lo]
     cols, rows = tpl._segment_tables(parsed, table, chains)
     comp = torch.from_numpy(buf.copy())
-    seqs, ch, total = tsg.pack_chains(cols, rows, buf.size, "cpu")
+    seqs, ch, total, longest = tsg.pack_chains(cols, rows, buf.size, "cpu")
     n0 = _kernels.LAUNCHES["segment_decode"]
-    got = tsg.segment_decode(comp.to(cuda), seqs.to(cuda), ch.to(cuda), total)
+    got = tsg.segment_decode(comp.to(cuda), seqs.to(cuda), ch.to(cuda), total,
+                             max_chain=longest)
     assert _kernels.LAUNCHES["segment_decode"] == n0 + 1
     assert got.cpu().numpy().tobytes() == blob
     if kind != "text":      # the plain loop is slow on many sequences
@@ -371,3 +373,91 @@ def test_to_device_packed_on_card(cuda):
         assert t.is_cuda and t.is_contiguous() and tuple(t.shape) == a.shape
         assert t.data_ptr() % 16 == 0
         assert np.array_equal(t.cpu().numpy(), a)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels at the edges of their design (lz4tpu_torch.exp.edge)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(edge.SEGMENT_CASES))
+def test_segment_decode_kernel_edges(cuda, name):
+    """Kernel H6 on a chain longer than its ring with offset 65,535, on
+    gaps and overlapping matches across tile edges, and on offsets
+    above 65,535, against the numpy reference."""
+    comp, cols, n_out, want = edge.segment_case(name)
+    n0 = _kernels.LAUNCHES["segment_decode"]
+    got = tsg.decode_chain_device(comp, *cols, n_out, device=cuda)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["segment_decode"] == n0 + 1
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("names,ring", [
+    (("overlap1", "overlap3"), 1 << 16), (("gaps", "overlap2"), 1 << 16),
+    (("gaps", "ring_far", "overlap1"), 1 << 17)])
+def test_segment_decode_kernel_many_chains(cuda, names, ring):
+    """Forty chains in one launch, at bases that are not 16-byte
+    aligned: the ring is sized by the longest (64 KiB, or 128 KiB where
+    one chain in three is longer than that)."""
+    cases = [edge.segment_case(names[k % len(names)]) for k in range(40)]
+    comp = np.concatenate([c[0] for c in cases])
+    cols, rows, wants, cbase, obase = [], [], [], 0, 0
+    for k, (c, cl, n_out, want) in enumerate(cases):
+        obase += k % 5                      # a gap between chains
+        cols.append(cl)
+        rows.append((cl[0].size, cbase, obase, n_out))
+        wants.append((obase, want))
+        cbase += c.size
+        obase += n_out
+    assert tsg.ring_bytes_for(
+        tsg.pack_chains(cols, rows, comp.size, "cpu")[3]) == ring
+    got = tsg.decode_chains_device(torch.from_numpy(comp).to(cuda), cols,
+                                   rows).cpu().numpy()
+    for base, want in wants:
+        assert np.array_equal(got[base:base + want.size], want)
+    covered = np.zeros(got.size, bool)
+    for base, want in wants:
+        covered[base:base + want.size] = True
+    assert not got[~covered].any()
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_fused_route_kernel_edges(cuda, seeded):
+    """Kernel H1's route where its word gather has an edge: sources
+    across a 4-byte word, a run's end, the ring's end into the window;
+    two segments in one launch; a ring carried from launch to launch.
+    300 substeps pass the kernel's scalar chunks (128 substeps) twice."""
+    case = edge.route_case(n_sub=300)
+    pos, lits, winq, scal = (torch.from_numpy(a).to(cuda) for a in case)
+    n = case[0].shape[0]
+    ring_in = np.random.default_rng(9).integers(0, 256, 65536, dtype=np.uint8)
+    ring_dev = torch.from_numpy(ring_in).to(cuda) if seeded else None
+    for segs in ([(0, n, int(seeded))], [(0, 17, 0), (17, n, int(seeded))],
+                 [(0, 1, int(seeded)), (1, 3, 0), (3, n, 0)]):
+        rows, ring = tfu.route(pos, lits, winq, scal,
+                               segments_tensor(segs, cuda), ring_dev)
+        torch.cuda.synchronize()
+        want_rows, want_ring = edge.ref_route(*case, segs,
+                                              ring_in if seeded else None)
+        assert np.array_equal(rows.cpu().numpy(), want_rows)
+        assert np.array_equal(ring.cpu().numpy(), want_ring)
+    # sources below 0 and past the window's end clamp as the plain route's
+    stray = edge.route_case(n_sub=20, stray=True)
+    rows, ring = tfu.route(*(torch.from_numpy(a).to(cuda) for a in stray),
+                           segments_tensor([(0, 20, int(seeded))], cuda),
+                           ring_dev)
+    want_rows, want_ring = edge.ref_route(*stray, [(0, 20, int(seeded))],
+                                          ring_in if seeded else None)
+    assert np.array_equal(rows.cpu().numpy(), want_rows)
+    assert np.array_equal(ring.cpu().numpy(), want_ring)
+    # launch to launch: [0, cut) then [cut, n) seeded by the first's ring
+    whole, ring_whole = tfu.route(pos, lits, winq, scal,
+                                  segments_tensor([(0, n, 0)], cuda))
+    for cut in (1, 2, 3, 4, 5, 17, 128, 200):
+        rows1, ring1 = tfu.route(pos[:cut], lits, winq[:cut], scal[:cut],
+                                 segments_tensor([(0, cut, 0)], cuda))
+        rows2, ring2 = tfu.route(pos[cut:], lits, winq[cut:], scal[cut:],
+                                 segments_tensor([(0, n - cut, 1)], cuda),
+                                 ring1)
+        assert torch.equal(torch.cat([rows1, rows2]), whole)
+        assert torch.equal(ring2, ring_whole)

@@ -83,3 +83,18 @@ def test_cpu_fill_launches_nothing():
     before = dict(_kernels.LAUNCHES)
     tsp.block_fill(torch.tensor([3], dtype=torch.int32))
     assert _kernels.LAUNCHES == before
+
+
+def test_decode_sparse_defaults_to_the_card():
+    """Like every entry point that takes ``device=``: the default is
+    ``"cuda"``, and without CUDA it raises and does not carry on on the
+    CPU."""
+    import inspect
+
+    assert (inspect.signature(tsp.decode_sparse).parameters["device"].default
+            == "cuda")
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only where CUDA is absent")
+    prog, buf = _program(bytes(100_000))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tsp.decode_sparse(prog, buf)
