@@ -179,6 +179,24 @@ def repo_text(n) -> bytes:
     return blob[:n]
 
 
+def words32m(np, lt):
+    """32 MiB of word tokens of the checkout's own text: the sorted
+    unique tokens (words, runs of punctuation, runs of white space) of
+    :func:`repo_text`'s first MiB, drawn uniformly with seed 15, as
+    ``(compressed, original)``.  It plans as one dense (mxu2) chain of
+    16,384 substeps: kernel H3 at a text chain's full part size.  Not
+    served: the kernel phase and one ``decompress_to_device`` use it."""
+    toks = sorted(set(re.findall(
+        rb"[A-Za-z_][A-Za-z0-9_]*|[^A-Za-z0-9_\s]+|\s+", repo_text(1 << 20))))
+    n = 32 << 20
+    rng = np.random.default_rng(15)
+    mean = np.mean([len(t) for t in toks])
+    out = b"".join([toks[i] for i in rng.integers(0, len(toks),
+                                                 int(n / mean * 1.1) + 16)])
+    need(len(out) >= n, "word corpus came out short")
+    return lt.compress(out[:n]), out[:n]
+
+
 def corpora(np, lt):
     """name -> (compressed, original, expected engine mix, block fill,
     blocks carry checksums)"""
@@ -222,6 +240,35 @@ def segment_shapes(np, lt, corp):
             ("frag32m in independent 64 KiB blocks",
              lt.compress(corp["frag32m"][1], **kw), corp["frag32m"][1]),
             ("src1m", *corp["src1m"][:2]))
+
+
+def expand_shapes(np, lt, tpl, corp):
+    """What H1's expand is timed on, as ``(name, prep, n_sub)``: the
+    first substeps of a prep, one launch's worth: a pipelined chunk
+    (``PIPE_SUBS`` = 64 substeps of frag32m), frag1m's whole chain (556)
+    and frag32m's first part (``PART_SUBS`` = 8192)."""
+    from lz4tpu_torch.device import fused as fu
+
+    p1 = plan_of(np, lt, tpl, corp["frag1m"][0])[3].fused_prep
+    p32 = plan_of(np, lt, tpl, corp["frag32m"][0])[3].fused_prep
+    return ((f"frag32m, a pipelined chunk of {fu.PIPE_SUBS} substeps", p32,
+             fu.PIPE_SUBS),
+            (f"frag1m, {p1.n_sub} substeps", p1, p1.n_sub),
+            (f"frag32m's first part, {fu.PART_SUBS} substeps", p32,
+             fu.PART_SUBS))
+
+
+def route_shapes(np, lt, tpl, corp, words):
+    """What H3 is timed on, as ``(name, pack)``: src1m (one dense chain of
+    512 substeps) and words32m (one of 16,384)."""
+    out = []
+    for name, data in (("src1m", corp["src1m"][0]), ("words32m", words[0])):
+        plan = plan_of(np, lt, tpl, data)[3]
+        need(plan.dense_pack is not None and len(plan.dense_chains) == 1,
+             f"{name} did not plan as one mxu2 chain")
+        out.append((f"{name}, {plan.dense_pack.n_sub} substeps",
+                    plan.dense_pack))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +401,7 @@ def plan_of(np, lt, tpl, data):
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def kernel_phase(torch, np, lt, tpl, corp, dev, name_card, probe):
+def kernel_phase(torch, np, lt, tpl, corp, words, dev, name_card, probe):
     """Each kernel against its plain version, timed, with its bound."""
     from lz4tpu_torch import native
     from lz4tpu_torch.device import fused as fu
@@ -397,13 +444,31 @@ def kernel_phase(torch, np, lt, tpl, corp, dev, name_card, probe):
     pos_p = fu.expand_plain(t["seqrec"], t["scal"], t["patch"])
     torch.cuda.synchronize()
     shape = f"frag1m, {n} substeps"
-    record("fused_expand", max_abs_err(torch, pos_k, pos_p),
-           cuda_ms(torch, lambda: fu.expand(
-               t["seqrec"], t["scal"], t["patch"]), 20),
-           cuda_ms(torch, lambda: fu.expand_plain(
-               t["seqrec"], t["scal"], t["patch"]), 5),
-           1e3 * nbytes(t["seqrec"], t["scal"], t["patch"], pos_k)
-           / HBM_BYTES_PER_S, "bytes", shape)
+    # H1's expand at each launch shape it has on the paths: a pipelined
+    # chunk, frag1m's chain, frag32m's first part; frag1m's is the row's
+    by_shape, err = {}, 0
+    for name, prep_e, n_e in expand_shapes(np, lt, tpl, corp):
+        te = [to_device(np.ascontiguousarray(getattr(prep_e, k)[:n_e]), dev)
+              for k in ("seqrec", "scal", "patch")]
+        got = fu.expand(*te)
+        err_e = max_abs_err(torch, got, fu.expand_plain(*te))
+        need(err_e <= TOL, f"fused_expand: {name} differs from plain "
+                           f"(max abs err {err_e})")
+        err = max(err, err_e)
+        by_shape[name] = {
+            "ms": cuda_ms(torch, lambda: fu.expand(*te), 20),
+            "plain_ms": cuda_ms(torch, lambda: fu.expand_plain(*te), 5),
+            "bound_ms": 1e3 * nbytes(*te, got) / HBM_BYTES_PER_S}
+        print(f"[kernel] fused_expand: equal to plain at {name}: kernel "
+              f"{by_shape[name]['ms']:.4f} ms, bound "
+              f"{by_shape[name]['bound_ms']:.4f} ms (bytes), plain "
+              f"{by_shape[name]['plain_ms']:.4f} ms [{name_card}]",
+              flush=True)
+        del te, got
+    main_e = by_shape[shape]
+    record("fused_expand", err, main_e["ms"], main_e["plain_ms"],
+           main_e["bound_ms"], "bytes", shape)
+    rows["fused_expand"]["by_shape"] = by_shape
     out_k, ring_k = fu.route(pos_k, lits, t["winq"], t["scal"], segs)
     out_p, ring_p = fu.route_plain(pos_p, lits, t["winq"], t["scal"], segs)
     torch.cuda.synchronize()
@@ -469,29 +534,76 @@ def kernel_phase(torch, np, lt, tpl, corp, dev, name_card, probe):
           "ring carried across launches, and on sources outside the 17-bit "
           "space", flush=True)
 
-    # H3 on src1m: one mxu2 chain, 512 substeps
-    _buf, _p, _t, plan, _st = plan_of(np, lt, tpl, corp["src1m"][0])
-    pack = plan.dense_pack
-    need(pack is not None and len(plan.dense_chains) == 1,
-         "src1m did not plan as one mxu2 chain")
-    code = torch.from_numpy(pack.code).to(dev)
-    scal = torch.from_numpy(pack.scal).to(dev)
-    segs = segments_tensor(part_segments(pack.out_spans, 0, pack.n_sub,
-                                         False), dev)
-    out_k, ring_k = mx.route(code, scal, segs)
-    out_p, ring_p = mx.route_plain(code, scal, segs)
-    torch.cuda.synchronize()
-    need(torch.equal(ring_k, ring_p), "mxu2_route: ring_out differs")
-    record("mxu2_route", max_abs_err(torch, out_k, out_p),
-           cuda_ms(torch, lambda: mx.route(code, scal, segs), 20),
-           cuda_ms(torch, lambda: mx.route_plain(code, scal, segs), 2),
-           1e3 * nbytes(code, scal, segs, out_k, ring_k) / HBM_BYTES_PER_S,
-           "bytes", f"src1m, {pack.n_sub} substeps")
+    # H3 on src1m (one mxu2 chain, 512 substeps) and words32m (16,384):
+    # against the serial plain route and the original bytes; the plain
+    # route is timed on src1m only
+    by_shape, err = {}, 0
+    for name, pack in route_shapes(np, lt, tpl, corp, words):
+        code, scal = to_device(pack.code, dev), to_device(pack.scal, dev)
+        segs = segments_tensor(part_segments(pack.out_spans, 0, pack.n_sub,
+                                             False), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got, ring_g = mx._route(code, scal, segs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        want, ring_w = mx.route_plain(code, scal, segs)
+        torch.cuda.synchronize()
+        need(torch.equal(ring_g, ring_w), f"mxu2_route: {name}: ring_out "
+                                          "differs from plain")
+        blob = words[1] if name.startswith("words") else corp["src1m"][1]
+        need(got[:len(blob)].cpu().numpy().tobytes() == blob,
+             f"mxu2_route: {name} differs from the original")
+        err = max(err, max_abs_err(torch, got, want))
+        by_shape[name] = {
+            "ms": cuda_ms(torch, lambda: mx._route(code, scal, segs), 20),
+            "bound_ms": 1e3 * nbytes(code, scal, segs, got, ring_g)
+            / HBM_BYTES_PER_S, "peak_bytes": peak}
+        if name.startswith("src1m"):
+            by_shape[name]["plain_ms"] = cuda_ms(
+                torch, lambda: mx.route_plain(code, scal, segs), 2)
+            src_shape, out_k = name, got
+        print(f"[kernel] mxu2_route: equal to plain and to the original at "
+              f"{name}: kernel {by_shape[name]['ms']:.4f} ms, bound "
+              f"{by_shape[name]['bound_ms']:.4f} ms (bytes), "
+              f"{mx.passes_for(pack.n_sub)} passes at most; peak device "
+              f"memory of the call {peak} B beside a code array of "
+              f"{code.numel() * 4} B [{name_card}]", flush=True)
+        del code, got, want
+    main_r = by_shape[src_shape]
+    record("mxu2_route", err, main_r["ms"], main_r["plain_ms"],
+           main_r["bound_ms"], "bytes", src_shape)
+    rows["mxu2_route"]["by_shape"] = by_shape
+    # a pack of 16 independent chains, a seeded ring, and the ring carried
+    # from part to part
+    data, blob = corp["src1m"][0], corp["src1m"][1]
+    multi = plan_of(np, lt, tpl, lt.compress(
+        blob, block_independence=True, block_max_code=4))[3]
+    need(len(multi.dense_chains) == 16, "src1m in independent 64 KiB "
+         f"blocks planned {len(multi.dense_chains)} mxu2 chains, not 16")
+    pack = multi.dense_pack
+    seed_ring = to_device(np.random.default_rng(13).integers(
+        0, 256, 65536, dtype=np.uint8), dev)
+    for ring_in, part in ((None, None), (seed_ring, None), (None, 37),
+                          (seed_ring, 37)):
+        got = mx.decode_dense2_rows(pack, dev, ring_in=ring_in,
+                                    part_subs=part)
+        want = mx.decode_dense2_rows(pack, "cpu", ring_in=None if ring_in
+                                     is None else ring_in.cpu(),
+                                     part_subs=part)
+        torch.cuda.synchronize()
+        need(torch.equal(got[0].cpu(), want[0])
+             and torch.equal(got[1].cpu(), want[1]),
+             f"mxu2_route: 16 chains, ring_in {ring_in is not None}, parts "
+             f"of {part}: kernel differs from plain")
+    print(f"[kernel] mxu2_route: equal to plain on 16 independent chains "
+          f"({pack.n_sub} substeps), zero and seeded ring, one launch and "
+          "parts of 37 substeps carrying the ring", flush=True)
 
     # H7: every exact variant against plain on 200 KB with a seeded ring
     # (the ring wraps three times), then on src1m against the original
     # bytes; sub 2048 also against H3's rows
-    data, blob = corp["src1m"][0], corp["src1m"][1]
     small = blob[:200_000]
     small_data = lt.compress(small)
     ring_in = torch.from_numpy(np.random.default_rng(31).integers(
@@ -783,12 +895,13 @@ def stages_of(torch, np, lt, tpl, data, dev, mode):
 
 
 def to_device_path(torch, np, lt, tpl, _kernels, corp, dev, name_card,
-                   mode):
-    """decompress_to_device(verify=mode) over the corpora; returns the
-    launch counts of this path."""
+                   mode, extra=None):
+    """decompress_to_device(verify=mode) over the corpora and ``extra``
+    (more of the same shape); returns the launch counts of this path."""
     _kernels.reset_launches()
     total = dict.fromkeys(_kernels.LAUNCHES, 0)
-    for name, (data, blob, engines, fills, bsums) in corp.items():
+    for name, (data, blob, engines, fills, bsums) in {**corp,
+                                                      **(extra or {})}.items():
         if mode == "host" and name == "frag32m-bsum64k":
             continue                # the verify="device" pass's own corpus
         before = dict(_kernels.LAUNCHES)
@@ -1457,10 +1570,16 @@ def main() -> int:
     print(f"[corpora] {len(corp)} made and compressed in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    rows = kernel_phase(torch, np, lt, tpl, corp, dev, card, probe)
+    t0 = time.perf_counter()
+    words = words32m(np, lt)
+    print(f"[corpora] words32m made and compressed in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    rows = kernel_phase(torch, np, lt, tpl, corp, words, dev, card, probe)
     paths = {}
     paths["verify_host"] = to_device_path(
-        torch, np, lt, tpl, _kernels, corp, dev, card, "host")
+        torch, np, lt, tpl, _kernels, corp, dev, card, "host",
+        extra={"words32m": (*words, {"dense": 1}, False, False)})
     paths["verify_device"] = to_device_path(
         torch, np, lt, tpl, _kernels, corp, dev, card, "device")
     paths["decompress_device"] = decompress_device_path(

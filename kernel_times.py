@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times of ``segment_decode`` and ``fused_route`` in two checkouts, in
-turns on one card.
+"""Times of the redesigned kernels (``segment_decode``, ``fused_route``,
+``fused_expand``, ``mxu2_route``) in two checkouts, in turns on one card.
 
 Run from the root of a checkout on a machine with a GPU::
 
@@ -17,9 +17,13 @@ Measured: ``segment_decode`` (CUDA events behind a spin kernel, median
 of 5) on the shapes ``chip_smoke.segment_shapes`` names: src1m and
 frag1m (one chain each), indep2m (32 chains of 64 KiB) and frag32m in
 independent 64 KiB blocks (512 chains); ``fused_route`` (median of 20)
-on frag1m's one chain and on frag32m-indep's 8 chains in one launch; and
-the ``engines`` stage of ``decompress_to_device`` on frag32m and
-frag32m-indep (host clock, synchronised, median of 5).
+on frag1m's one chain and on frag32m-indep's 8 chains in one launch;
+``fused_expand`` (median of 20) on the shapes ``chip_smoke.expand_shapes``
+names (a 64-substep pipelined chunk, frag1m's 556 substeps, frag32m's
+first part of 8192); ``mxu2_route`` (median of 20, of 5 on words32m) on
+``chip_smoke.route_shapes``: src1m and words32m, each one dense chain;
+and the ``engines`` stage of ``decompress_to_device`` on src1m, frag32m
+and frag32m-indep (host clock, synchronised, median of 5).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ def measure(tree: pathlib.Path) -> dict:
     import lz4tpu_torch as lt
     import lz4tpu_torch.pipeline as tpl
     from lz4tpu_torch.device import fused as fu
+    from lz4tpu_torch.device import mxu2 as mx
     from lz4tpu_torch.device import segment_decode as sg
     from lz4tpu_torch.device import to_device
     from lz4tpu_torch.device.ring import part_segments, segments_tensor
@@ -91,7 +96,33 @@ def measure(tree: pathlib.Path) -> dict:
                 pos, lits, t["winq"], t["scal"], segs), 20)
         del pos
 
-    for name in ("frag32m", "frag32m-indep"):
+    for name, prep, n in cs.expand_shapes(np, lt, tpl, corp):
+        t = [to_device(np.ascontiguousarray(getattr(prep, k)[:n]), dev)
+             for k in ("seqrec", "scal", "patch")]
+        if not torch.equal(fu.expand(*t), fu.expand_plain(*t)):
+            raise SystemExit(f"fused_expand: {name} differs from plain")
+        out[f"fused_expand {name}"] = cs.cuda_ms(torch, lambda: fu.expand(*t),
+                                                 20)
+
+    # the wrapper is private in a tree whose H3 is pointer jumping
+    route = getattr(mx, "_route", None) or mx.route
+    words = cs.words32m(np, lt)
+    for name, pack in cs.route_shapes(np, lt, tpl, corp, words):
+        code, scal = to_device(pack.code, dev), to_device(pack.scal, dev)
+        segs = segments_tensor(part_segments(pack.out_spans, 0, pack.n_sub,
+                                             False), dev)
+        rows, _ring = route(code, scal, segs)
+        n_out = pack.out_spans[0][3]
+        blob = words[1] if name.startswith("words") else corp["src1m"][1]
+        if rows[:n_out].cpu().numpy().tobytes() != blob:
+            raise SystemExit(f"mxu2_route: {name} differs from the original")
+        del rows
+        out[f"mxu2_route {name}"] = cs.cuda_ms(
+            torch, lambda: route(code, scal, segs),
+            5 if name.startswith("words") else 20)
+        del code
+
+    for name in ("src1m", "frag32m", "frag32m-indep"):
         data = corp[name][0]
         cs.stages_of(torch, np, lt, tpl, data, dev, "device")
         out[f"engines stage {name}"] = statistics.median(

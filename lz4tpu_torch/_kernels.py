@@ -47,7 +47,7 @@ _SIGNATURES = {
     "lz4t_block_fill": [_P, _I64, _P, _P],
     "lz4t_fused_expand": [_P, _P, _P, _P, _I64, _P],
     "lz4t_fused_route": [_P, _P, _P, _P, _P, _I32, _P, _P, _P, _P],
-    "lz4t_mxu2_route": [_P, _P, _P, _I32, _P, _P, _P, _P],
+    "lz4t_mxu2_route": [_P, _P, _P, _I32, _P, _P, _P, _I32, _I32, _P, _P],
     "lz4t_xxh32_stream": [_P, _I64, _P, _P, _P],
     "lz4t_xxh32_blocks": [_P, _P, _P, _I32, _P, _P],
     "lz4t_segment_decode": [_P, _P, _I64, _P, _I32, _P, _I32, _P],

@@ -12,10 +12,19 @@
 //   scalars scal[i,3..5], forms each byte's 17-bit source (pos17: the
 //   ring below 65536, the literal window above), and applies the
 //   in-substep patch records.  Output: pos17 as int32, 4 B per byte.
-//   Bound on an H100: shared-memory atomics and the scan, per substep;
-//   device memory sees 6.5 KiB of records in and 8 KiB of pos17 out per
-//   substep.  Design: the TPU needed one-hot matmuls over bf16 digit
-//   planes to scatter; here atomics on shared memory scatter directly.
+//   Bound on an H100: bytes, 4.5 KiB of records, 1 KiB of patches and 32
+//   B of scalars in and 8 KiB of pos17 out a substep; a launch of a few
+//   hundred substeps is one wave, and one block's path is its time.
+//   Design: every device-memory load (two 16-byte vectors of records or
+//   one of patches a thread, and the carries) is issued before the maps
+//   are cleared, so no load waits behind another or behind a barrier.
+//   Lane l of warp w scans bytes 256w + 4l and 256w + 128 + 4l (four
+//   each): its map reads are conflict-free 16-byte loads, and each of
+//   the warp's two pos17 stores, straight from registers, is 512
+//   contiguous bytes.  Patches are stored over the block's own pos17
+//   after one more barrier (four in all).  32 registers and 24 KiB of
+//   shared memory: 8 blocks an SM.  The TPU needed one-hot matmuls over
+//   bf16 digit planes to scatter; here atomics on shared memory do.
 //
 // route: one block per chain segment.  The block walks its substeps in
 //   order, gathers 2048 bytes per substep from ring or literal window,
@@ -45,8 +54,9 @@ constexpr int PATCH_MAX = 256;     // patch records per substep
 constexpr int TAG = 1 << 17;       // patch marker above the 17-bit space
 constexpr int U_BIAS = RING - SUB; // literal pos17 = j + U + U_BIAS
 constexpr int EXPAND_THREADS = 256;
-constexpr int PER_T = SUB / EXPAND_THREADS;  // 8 consecutive bytes a thread
 constexpr int NWARP = EXPAND_THREADS / 32;
+constexpr int REC4 = SEQ_MAX / 4;   // 16-byte vectors of one record stream
+constexpr int PATCH4 = PATCH_MAX / 4;  // of one substep's patch records
 constexpr int STAGES = 4;           // substeps in flight in the route
 constexpr int SCAL_CHUNK = 128;     // substeps of scalars staged at once
 // route shared memory: ring | STAGES windows | STAGES pos17 | 2 chunks of
@@ -59,109 +69,147 @@ __device__ __forceinline__ int digit(uint32_t r, int shift) {
   return int((r >> shift) & 255u) - 128;
 }
 
-__global__ void __launch_bounds__(EXPAND_THREADS)
-fused_expand_kernel(const uint32_t* __restrict__ seqrec,
+__device__ __forceinline__ void scatter(int* maps, uint32_t r0, uint32_t r1) {
+  const int p = int(r0 & 0xFFFu);
+  if (r0 == 0u || p >= SUB) return;
+  atomicAdd(&maps[p], digit(r0, 12) + digit(r0, 20) * 256);
+  atomicAdd(&maps[SUB + p], digit(r1, 0) + digit(r1, 8) * 256 +
+                                (int((r0 >> 28) & 7u) - 4) * 65536);
+  atomicAdd(&maps[2 * SUB + p], digit(r1, 16) + digit(r1, 24) * 256);
+}
+
+// Inclusive warp scan of three values.
+__device__ __forceinline__ void warp_scan3(int& x, int& y, int& z, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int a = __shfl_up_sync(0xffffffffu, x, off);
+    const int b = __shfl_up_sync(0xffffffffu, y, off);
+    const int c = __shfl_up_sync(0xffffffffu, z, off);
+    if (lane >= off) {
+      x += a;
+      y += b;
+      z += c;
+    }
+  }
+}
+
+__device__ __forceinline__ int sum4(int4 a) { return a.x + a.y + a.z + a.w; }
+
+// pos17 of byte j from the inclusive sums u, v, b at j (carries included)
+__device__ __forceinline__ int pos_of(int j, int u, int v, int b) {
+  return j < b ? j + u + U_BIAS : (j + v) & 0xFFFF;
+}
+
+// Four bytes j0 .. j0+3 from the map values mu, mv, mb and the running
+// sums before them (advanced past them on return).
+__device__ __forceinline__ int4 pos4(int j0, int4 mu, int4 mv, int4 mb,
+                                     int& u, int& v, int& b) {
+  int4 p;
+  u += mu.x; v += mv.x; b += mb.x; p.x = pos_of(j0, u, v, b);
+  u += mu.y; v += mv.y; b += mb.y; p.y = pos_of(j0 + 1, u, v, b);
+  u += mu.z; v += mv.z; b += mb.z; p.z = pos_of(j0 + 2, u, v, b);
+  u += mu.w; v += mv.w; b += mb.w; p.w = pos_of(j0 + 3, u, v, b);
+  return p;
+}
+
+__device__ __forceinline__ void put_patch(int32_t* dst, int r) {
+  const int p = r >> 18;
+  const int code = r & 0x3FFFF;
+  if (r != 0 && code >= TAG && p >= 0 && p < SUB) dst[p] = code - TAG;
+}
+
+__global__ void __launch_bounds__(EXPAND_THREADS, 8)
+fused_expand_kernel(const int4* __restrict__ seqrec,
                     const int32_t* __restrict__ scal,
-                    const int32_t* __restrict__ patch,
+                    const int4* __restrict__ patch,
                     int32_t* __restrict__ pos17) {
-  __shared__ __align__(16) int mU[SUB];
-  __shared__ __align__(16) int mV[SUB];
-  __shared__ __align__(16) int mB[SUB];
+  __shared__ __align__(16) int maps[3 * SUB];  // U, V, B deltas
   __shared__ int wsum[3][NWARP];
   const int i = blockIdx.x;
   const int t = threadIdx.x;
 
-  for (int k = t; k < SUB; k += EXPAND_THREADS) {
-    mU[k] = 0;
-    mV[k] = 0;
-    mB[k] = 0;
+  // every device-memory load first: a thread below REC4 takes 4 records
+  // of each stream (empty slots are 0: a real record always has a nonzero
+  // biased carry digit), the next PATCH4 threads 4 patch records each
+  int4 a = make_int4(0, 0, 0, 0), b = a;
+  if (t < REC4) {
+    a = seqrec[size_t(i) * 2 * REC4 + t];
+    b = seqrec[size_t(i) * 2 * REC4 + REC4 + t];
+  } else if (t < REC4 + PATCH4) {
+    a = patch[size_t(i) * PATCH4 + t - REC4];
+  }
+  const int u0 = scal[size_t(i) * 8 + 3];
+  const int v0 = scal[size_t(i) * 8 + 4];
+  const int b0 = scal[size_t(i) * 8 + 5];
+  int4* maps4 = reinterpret_cast<int4*>(maps);
+  for (int k = t; k < 3 * SUB / 4; k += EXPAND_THREADS)
+    maps4[k] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  if (t < REC4) {
+    scatter(maps, a.x, b.x);
+    scatter(maps, a.y, b.y);
+    scatter(maps, a.z, b.z);
+    scatter(maps, a.w, b.w);
   }
   __syncthreads();
 
-  // records: stream 0 then stream 1, SEQ_MAX slots each; empty slots
-  // are 0 (a real record always has a nonzero biased carry digit)
-  const uint32_t* r0p = seqrec + size_t(i) * 2 * SEQ_MAX;
-  const uint32_t* r1p = r0p + SEQ_MAX;
-  for (int k = t; k < SEQ_MAX; k += EXPAND_THREADS) {
-    const uint32_t r0 = r0p[k];
-    if (r0 == 0u) continue;
-    const uint32_t r1 = r1p[k];
-    const int p = int(r0 & 0xFFFu);
-    if (p >= SUB) continue;
-    atomicAdd(&mU[p], digit(r0, 12) + digit(r0, 20) * 256);
-    atomicAdd(&mV[p], digit(r1, 0) + digit(r1, 8) * 256 +
-                          (int((r0 >> 28) & 7u) - 4) * 65536);
-    atomicAdd(&mB[p], digit(r1, 16) + digit(r1, 24) * 256);
-  }
-  __syncthreads();
-
-  // block-wide inclusive scan: 8 consecutive entries per thread, then a
-  // warp shuffle scan of the thread totals, then the warp totals
-  const int j0 = t * PER_T;
-  int u[PER_T], v[PER_T], b[PER_T];
-  int su = 0, sv = 0, sb = 0;
-#pragma unroll
-  for (int q = 0; q < PER_T; ++q) {
-    su += mU[j0 + q];
-    sv += mV[j0 + q];
-    sb += mB[j0 + q];
-    u[q] = su;
-    v[q] = sv;
-    b[q] = sb;
-  }
+  // block-wide inclusive scan of the three maps.  Lane l of warp w holds
+  // bytes 256w + 4l .. +3 (map chunk ca) and 256w + 128 + 4l .. +3
+  // (chunk cb): each of its warp's two 16-byte pos17 stores then covers
+  // 512 contiguous bytes, and the map reads hit every bank once.  Two
+  // warp scans (chunks A, then chunks B after the warp's last A), then
+  // the warp totals.
   const int lane = t & 31;
   const int w = t >> 5;
+  const int ca = 64 * w + lane;
+  const int cb = ca + 32;
+  const int su = sum4(maps4[ca]), sv = sum4(maps4[SUB / 4 + ca]),
+            sb = sum4(maps4[SUB / 2 + ca]);
   int xu = su, xv = sv, xb = sb;
+  warp_scan3(xu, xv, xb, lane);
+  const int tu = sum4(maps4[cb]), tv = sum4(maps4[SUB / 4 + cb]),
+            tb = sum4(maps4[SUB / 2 + cb]);
+  int yu = tu, yv = tv, yb = tb;
+  warp_scan3(yu, yv, yb, lane);
+  const int au = __shfl_sync(0xffffffffu, xu, 31);
+  const int av = __shfl_sync(0xffffffffu, xv, 31);
+  const int ab = __shfl_sync(0xffffffffu, xb, 31);
+  if (lane == 31) {
+    wsum[0][w] = au + yu;
+    wsum[1][w] = av + yv;
+    wsum[2][w] = ab + yb;
+  }
+  __syncthreads();
+  int bu = u0, bv = v0, bb = b0;
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int yu = __shfl_up_sync(0xffffffffu, xu, off);
-    const int yv = __shfl_up_sync(0xffffffffu, xv, off);
-    const int yb = __shfl_up_sync(0xffffffffu, xb, off);
-    if (lane >= off) {
-      xu += yu;
-      xv += yv;
-      xb += yb;
+  for (int k = 0; k < NWARP - 1; ++k) {
+    if (k < w) {
+      bu += wsum[0][k];
+      bv += wsum[1][k];
+      bb += wsum[2][k];
     }
   }
-  if (lane == 31) {
-    wsum[0][w] = xu;
-    wsum[1][w] = xv;
-    wsum[2][w] = xb;
-  }
-  __syncthreads();
-  int cu = scal[size_t(i) * 8 + 3] + xu - su;
-  int cv = scal[size_t(i) * 8 + 4] + xv - sv;
-  int cb = scal[size_t(i) * 8 + 5] + xb - sb;
-  for (int k = 0; k < w; ++k) {
-    cu += wsum[0][k];
-    cv += wsum[1][k];
-    cb += wsum[2][k];
-  }
-  int pv[PER_T];
-#pragma unroll
-  for (int q = 0; q < PER_T; ++q) {
-    const int j = j0 + q;
-    pv[q] = j < cb + b[q] ? j + cu + u[q] + U_BIAS : (j + cv + v[q]) & 0xFFFF;
-  }
-  __syncthreads();  // every map read is done: mU becomes the pos17 grid
-#pragma unroll
-  for (int q = 0; q < PER_T; ++q) mU[j0 + q] = pv[q];
-  __syncthreads();
+  int4* dst = reinterpret_cast<int4*>(pos17 + size_t(i) * SUB);
+  int cu = bu + xu - su, cv = bv + xv - sv, cl = bb + xb - sb;
+  dst[ca] = pos4(4 * ca, maps4[ca], maps4[SUB / 4 + ca], maps4[SUB / 2 + ca],
+                 cu, cv, cl);
+  cu = bu + au + yu - tu;
+  cv = bv + av + yv - tv;
+  cl = bb + ab + yb - tb;
+  dst[cb] = pos4(4 * cb, maps4[cb], maps4[SUB / 4 + cb], maps4[SUB / 2 + cb],
+                 cu, cv, cl);
 
   // patches: rec = pos << 18 | code18; code18 >= TAG overrides the byte
-  // at pos (positions are unique within a substep)
-  for (int k = t; k < PATCH_MAX; k += EXPAND_THREADS) {
-    const int r = patch[size_t(i) * PATCH_MAX + k];
-    if (r == 0) continue;
-    const int p = r >> 18;
-    const int code = r & 0x3FFFF;
-    if (code >= TAG && p >= 0 && p < SUB) mU[p] = code - TAG;
-  }
+  // at pos (positions are unique within a substep), stored over the
+  // block's own pos17 once every thread has stored it
   __syncthreads();
-
-  int4* dst = reinterpret_cast<int4*>(pos17 + size_t(i) * SUB);
-  const int4* src = reinterpret_cast<const int4*>(mU);
-  for (int k = t; k < SUB / 4; k += EXPAND_THREADS) dst[k] = src[k];
+  if (t >= REC4 && t < REC4 + PATCH4) {
+    int32_t* row = pos17 + size_t(i) * SUB;
+    put_patch(row, a.x);
+    put_patch(row, a.y);
+    put_patch(row, a.z);
+    put_patch(row, a.w);
+  }
 }
 
 // A pos17 source as a shared-memory offset: the ring below RING, the
@@ -259,7 +307,8 @@ LZ4T_API int lz4t_fused_expand(const int32_t* seqrec, const int32_t* scal,
   if (n_sub > 0)
     fused_expand_kernel<<<unsigned(n_sub), EXPAND_THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const uint32_t*>(seqrec), scal, patch, pos17);
+        reinterpret_cast<const int4*>(seqrec), scal,
+        reinterpret_cast<const int4*>(patch), pos17);
   return int(cudaGetLastError());
 }
 

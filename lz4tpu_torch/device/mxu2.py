@@ -4,9 +4,12 @@ engine's in-substep patch budget.
 
 The native packer resolves every output byte's provenance on the host
 (``DensePack2``: one int32 code per byte).  The device side is kernel
-H3 (``csrc/mxu2.cu``): :func:`route` walks each chain's substeps in
-order through the 64 KiB ring.  :func:`route_plain` is its plain
-PyTorch version, taken only for CPU tensors.
+H3 (``csrc/mxu2.cu``): :func:`_route` resolves every byte of every
+chain at once, each ring reference turned into the absolute position
+of the byte it reads (:func:`sources_plain`) and the links followed by
+pointer jumping (:func:`jump_plain`).  :func:`route_plain`, the serial
+substep loop through the 64 KiB ring, is the spec and the version a
+CPU tensor takes.
 """
 
 from __future__ import annotations
@@ -105,11 +108,32 @@ def pack_dense2(
     )
 
 
-def route(code: torch.Tensor, scal: torch.Tensor, segs: torch.Tensor,
-          ring_in: torch.Tensor | None = None):
-    """Decode every segment ``segs[k] = (lo, hi, carry)`` of substeps in
-    order through its ring; returns ``(rows, ring_out)``: uint8
-    ``(n_sub * SUB,)`` and the last segment's final ``(65536,)`` ring."""
+def passes_for(n: int) -> int:
+    """Pointer-jumping passes that resolve any pack of ``n`` substeps:
+    every link of a chain goes to an earlier substep of its segment, so
+    a chain has fewer than ``n`` links, and ``ceil(log2(n)) + 1`` passes
+    of doubling cover them (16 for ``PART_SUBS``)."""
+    return max(n - 1, 0).bit_length() + 1
+
+
+def _route(code: torch.Tensor, scal: torch.Tensor, segs: torch.Tensor,
+           ring_in: torch.Tensor | None = None):
+    """Decode every segment ``segs[k] = (lo, hi, carry)`` of substeps
+    through its ring; returns ``(rows, ring_out)``: uint8 ``(n_sub *
+    SUB,)`` and the last segment's final ``(65536,)`` ring.  Segments
+    are disjoint and in substep order (``ring.part_segments``); rows of
+    a substep in no segment are 0.
+
+    On a CUDA tensor, kernel H3 resolves every byte at once: it takes
+    the ring rows of a segment to advance 8 a substep (``scal[i + 1] ==
+    (scal[i] + 8) & 255``, multiples of 8), as ``pack_dense2`` makes
+    them, and decodes other rows wrongly.  Checking that would wait for
+    the card, so this wrapper does not and is private: the entry that
+    launches it, :func:`decode_dense2_rows`, checks the rows on the host
+    before it stages them and raises ``ValueError`` on any other
+    pattern.  One call is one memset, ``passes_for(n) + 2`` kernels and
+    4 B of scratch a byte.  On a CPU tensor: :func:`route_plain`, which
+    takes any rows."""
     if code.device.type == "cpu":
         return route_plain(code, scal, segs, ring_in)
     n = code.shape[0]
@@ -121,16 +145,21 @@ def route(code: torch.Tensor, scal: torch.Tensor, segs: torch.Tensor,
         _kernels.check(ring_in, "ring_in", torch.uint8, (RING,))
     rows = torch.empty(n * SUB, dtype=torch.uint8, device=dev)
     ring_out = torch.empty(RING, dtype=torch.uint8, device=dev)
+    passes = passes_for(n)
+    # state words, the passes' flags
+    scratch = torch.empty(n * SUB + passes + 1, dtype=torch.int32,
+                          device=dev)
     _kernels.launch(
         "mxu2_route", "lz4t_mxu2_route", dev,
         code.data_ptr(), scal.data_ptr(), segs.data_ptr(), segs.shape[0],
-        _kernels.ptr(ring_in), rows.data_ptr(), ring_out.data_ptr())
+        _kernels.ptr(ring_in), rows.data_ptr(), ring_out.data_ptr(), n,
+        passes, scratch.data_ptr())
     return rows, ring_out
 
 
 def route_plain(code: torch.Tensor, scal: torch.Tensor, segs: torch.Tensor,
                 ring_in: torch.Tensor | None = None):
-    """Plain PyTorch version of :func:`route`: a serial substep loop."""
+    """Plain PyTorch version of :func:`_route`: a serial substep loop."""
     dev = code.device
     n = code.shape[0]
     rows = torch.zeros(n * SUB, dtype=torch.uint8, device=dev)
@@ -150,18 +179,110 @@ def route_plain(code: torch.Tensor, scal: torch.Tensor, segs: torch.Tensor,
     return rows, ring
 
 
+def sources_plain(code: torch.Tensor, scal: torch.Tensor,
+                  segs: torch.Tensor,
+                  ring_in: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of kernel H3's first pass: each code as a state
+    word, int32 ``(n_sub * SUB,)``: ``>= 0`` the absolute position
+    (substep * SUB + byte) of the byte it equals, ``< 0`` the resolved
+    byte ``~s``.  A ring reference at offset ``o`` in substep ``i``
+    names the byte that substep ``i - 1 - ((blk_i - o // SUB - 1) mod
+    32)`` wrote there (``blk_i = (scal[i] & 255) // 8``), or, before the
+    segment, the initial ring's byte (``ring_in`` where the segment
+    carries, else 0)."""
+    dev = code.device
+    n = code.shape[0]
+    state = torch.full((n, SUB), -1, dtype=torch.int32, device=dev)
+    blocks = RING // SUB
+    offs = code & 0xFFFF
+    blk = (scal[:, :1] & 255) >> 3
+    i = torch.arange(n, dtype=torch.int32, device=dev).unsqueeze(1)
+    k = i - 1 - ((blk - (offs >> 11) - 1) & (blocks - 1))
+    for lo, hi, carry in segs.tolist():
+        part = slice(lo, hi)
+        init = (ring_in if carry and ring_in is not None
+                else zero_ring(dev)).to(torch.int32)
+        ring_ref = ((code[part] >> 16) & 1).bool()
+        known = ~((code[part] >> 17) & 255)
+        back = k[part] >= lo
+        pointer = k[part] * SUB + (offs[part] & (SUB - 1))
+        before = ~init[offs[part].to(torch.int64)]
+        state[part] = torch.where(ring_ref,
+                                  torch.where(back, pointer, before), known)
+    return state.reshape(-1)
+
+
+def jump_plain(state: torch.Tensor, passes: int) -> torch.Tensor:
+    """Plain version of kernel H3's pointer jumping: ``passes`` rounds
+    of ``s = state[s]`` for every pointer (``s >= 0``), all at once."""
+    for _ in range(passes):
+        ptr = state >= 0
+        if not bool(ptr.any()):
+            break
+        state = torch.where(ptr, state[state.clamp(min=0).to(torch.int64)],
+                            state)
+    return state
+
+
+def route_jump_plain(code: torch.Tensor, scal: torch.Tensor,
+                     segs: torch.Tensor,
+                     ring_in: torch.Tensor | None = None):
+    """Kernel H3's three steps in plain PyTorch: :func:`sources_plain`,
+    :func:`jump_plain` for ``passes_for(n)`` passes, then the bytes and
+    ``ring_out`` (the last segment's last 32 substeps, below them its
+    initial ring).  Equals :func:`route_plain` on rows that advance 8 a
+    substep."""
+    dev = code.device
+    n = code.shape[0]
+    state = jump_plain(sources_plain(code, scal, segs, ring_in),
+                       passes_for(n))
+    if bool((state >= 0).any()):
+        raise RuntimeError("mxu2: pointers left after every pass")
+    rows = (~state).to(torch.uint8)
+    ring = zero_ring(dev)
+    seg_rows = segs.tolist()
+    if seg_rows:
+        lo, hi, carry = seg_rows[-1]
+        if carry and ring_in is not None:
+            ring = ring_in.clone()
+        o = torch.arange(RING, dtype=torch.int64, device=dev)
+        last = (int(scal[hi - 1, 0]) & 255) >> 3
+        k = hi - 1 - ((last - (o >> 11)) & (RING // SUB - 1))
+        mine = k >= lo
+        ring[mine] = rows[k[mine] * SUB + (o[mine] & (SUB - 1))]
+    return rows, ring
+
+
+def check_ring_rows(scal: np.ndarray, out_spans) -> None:
+    """Raise ``ValueError`` unless every chain's ring rows advance 8 a
+    substep from a multiple of 8 (``pack_dense2``'s pattern, which kernel
+    H3 takes for granted)."""
+    rows = np.asarray(scal).reshape(-1).astype(np.int64) & (PAGES - 1)
+    step = SUB // ROWB
+    ok = bool((rows % step == 0).all())
+    for (_c, lo, hi, _n) in out_spans:
+        ok = ok and bool((((rows[lo + 1:hi] - rows[lo:hi - 1]) & (PAGES - 1))
+                          == step).all())
+    if not ok:
+        raise ValueError(
+            "mxu2 pack: ring rows must advance 8 a substep within a chain")
+
+
 def decode_dense2_rows(pack: DensePack2, device, ring_in=None,
                        part_subs: int | None = None):
     """Decode a DensePack2 on ``device``; returns ``(rows, ring_out)``:
     flat uint8 rows ``(n_sub * SUB,)`` (chain ``k``'s bytes at
     ``out_spans[k]``) and the final ring.  Packs beyond ``part_subs``
     substeps launch part by part, each part's ring seeding the next;
-    ``ring_in`` seeds the first chain's ring."""
+    ``ring_in`` seeds the first chain's ring.  Raises ``ValueError`` if
+    a chain's ring rows do not advance 8 a substep
+    (:func:`check_ring_rows`)."""
     dev = torch.device(device)
     n = pack.n_sub
     if n == 0:
         return (torch.zeros(0, dtype=torch.uint8, device=dev),
                 zero_ring(dev) if ring_in is None else ring_in)
+    check_ring_rows(pack.scal[:n], pack.out_spans)
     part = part_subs or PART_SUBS
     bounds = [(p0, min(p0 + part, n)) for p0 in range(0, n, part)]
     # the small tables share one staging copy
@@ -173,7 +294,7 @@ def decode_dense2_rows(pack: DensePack2, device, ring_in=None,
     ring = ring_in
     parts = []
     for (p0, p1), segs in zip(bounds, part_segs):
-        rows, ring = route(to_device(pack.code[p0:p1], dev), scal[p0:p1],
-                           segs, ring)
+        rows, ring = _route(to_device(pack.code[p0:p1], dev), scal[p0:p1],
+                            segs, ring)
         parts.append(rows)
     return (parts[0] if len(parts) == 1 else torch.cat(parts)), ring

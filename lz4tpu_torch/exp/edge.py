@@ -221,3 +221,25 @@ def ref_route(pos17, lits, winq, scal, segs, ring_in=None):
             r = (scal[i, 0] & 255) * 256
             ring[r:r + SUB] = vals
     return rows, ring
+
+
+# ---------------------------------------------------------------------------
+# mxu2 route
+# ---------------------------------------------------------------------------
+
+def deep_chain(n_sub: int, seed: int = 3):
+    """A made-up mxu2 pack ``(code, scal)`` whose reference chains are as
+    deep as its substeps allow: substep 0 holds known bytes, and each byte
+    of a later substep reads the same byte of the substep before it
+    through the ring, but for one known byte in 64 (never in column 0).
+    So byte 0 of the last substep lies ``n_sub - 1`` links from a known
+    byte: the depth that kernel H3's ``passes_for(n_sub)`` passes must
+    cover.  Ring rows advance 8 a substep from 0, as ``pack_dense2``'s."""
+    rng = np.random.default_rng(seed)
+    code = rng.integers(0, 256, (n_sub, SUB)).astype(np.int32) << 17
+    prev = (np.arange(n_sub - 1)[:, None] * SUB + np.arange(SUB)) % RING
+    fresh = rng.random((n_sub - 1, SUB)) < 1 / 64
+    fresh[:, 0] = False
+    code[1:] = np.where(fresh, code[1:], (1 << 16) | prev)
+    scal = ((np.arange(n_sub) * (SUB // 256)) & 255).astype(np.int32)
+    return code, scal.reshape(-1, 1)

@@ -92,7 +92,7 @@ def test_mxu2_kernel(cuda, independent):
     pack = tmx.pack_dense2(*cols, chain_ranges=ranges)
     segs = part_segments(pack.out_spans, 0, pack.n_sub, False)
     code, scal = torch.from_numpy(pack.code), torch.from_numpy(pack.scal)
-    rows_k, ring_k = tmx.route(code.to(cuda), scal.to(cuda),
+    rows_k, ring_k = tmx._route(code.to(cuda), scal.to(cuda),
                                segments_tensor(segs, cuda))
     rows_p, ring_p = tmx.route_plain(code, scal, segments_tensor(segs, "cpu"))
     torch.cuda.synchronize()
@@ -135,7 +135,7 @@ def test_card_equals_plain_on_mixed_frames(cuda, seed):
 
 def test_kernel_rejects_cpu_mix(cuda):
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tmx.route(torch.zeros((1, 2048), dtype=torch.int32, device=cuda),
+        tmx._route(torch.zeros((1, 2048), dtype=torch.int32, device=cuda),
                   torch.zeros((1, 1), dtype=torch.int32),
                   torch.zeros((1, 3), dtype=torch.int32, device=cuda))
 
@@ -461,3 +461,130 @@ def test_fused_route_kernel_edges(cuda, seeded):
                                  ring1)
         assert torch.equal(torch.cat([rows1, rows2]), whole)
         assert torch.equal(ring2, ring_whole)
+
+
+# ---------------------------------------------------------------------------
+# H3 resolved by pointer jumping; H1 expand at several grid sizes
+# ---------------------------------------------------------------------------
+
+def _words_text(n: int) -> bytes:
+    """n bytes of word tokens of the port's own source text, seeded:
+    one dense chain whose reference chains run hundreds of links deep."""
+    import re
+
+    toks = sorted(set(re.findall(
+        rb"[A-Za-z_][A-Za-z0-9_]*|[^A-Za-z0-9_\s]+|\s+", _src_text(140_000))))
+    rng = np.random.default_rng(5)
+    return b"".join([toks[i] for i in rng.integers(0, len(toks),
+                                                   n // 3)])[:n]
+
+
+def _route_both(code, scal, segs, ring_in, cuda):
+    """H3 on the card and route_plain on the CPU of the same inputs."""
+    dev = [t.to(cuda) for t in (code, scal, segments_tensor(segs, "cpu"))]
+    got = tmx._route(*dev, None if ring_in is None else ring_in.to(cuda))
+    want = tmx.route_plain(code, scal, segments_tensor(segs, "cpu"), ring_in)
+    torch.cuda.synchronize()
+    return got[0].cpu(), got[1].cpu(), want[0], want[1]
+
+
+@pytest.mark.parametrize("kind", ["src", "chains", "words"])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_mxu2_pointer_jumping_kernel(cuda, kind, seeded):
+    """H3 equals the serial plain route: one chain, independent chains
+    (one segment each), 4 MiB of word tokens; zero or seeded ring."""
+    blob = {"src": _src_text(300_000), "chains": _src_text(300_000),
+            "words": _words_text(4 << 20)}[kind]
+    kw = (dict(block_max_code=4, block_independence=True)
+          if kind == "chains" else {})
+    cols, ranges = _table(lz4tpu_torch.compress(blob, **kw))
+    pack = tmx.pack_dense2(*cols, chain_ranges=ranges)
+    seed = (torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, 65536, dtype=np.uint8)) if seeded else None)
+    segs = part_segments(pack.out_spans, 0, pack.n_sub, seeded)
+    rows, ring, rows_p, ring_p = _route_both(
+        torch.from_numpy(pack.code), torch.from_numpy(pack.scal), segs, seed,
+        cuda)
+    assert torch.equal(rows, rows_p) and torch.equal(ring, ring_p)
+    if not seeded:
+        assert b"".join(rows.numpy()[lo * 2048:lo * 2048 + n].tobytes()
+                        for (_c, lo, _hi, n) in pack.out_spans) == blob
+
+
+@pytest.mark.parametrize("part_subs", [5, 37])
+def test_mxu2_kernel_parts_carry_the_ring(cuda, part_subs):
+    """decode_dense2_rows launch by launch, each part's ring seeding the
+    next, equals the plain part loop and one launch."""
+    cols, ranges = _table(lz4tpu_torch.compress(_src_text(300_000)))
+    pack = tmx.pack_dense2(*cols, chain_ranges=ranges)
+    rows_k, ring_k = tmx.decode_dense2_rows(pack, cuda, part_subs=part_subs)
+    rows_p, ring_p = tmx.decode_dense2_rows(pack, "cpu", part_subs=part_subs)
+    whole, ring_w = tmx.decode_dense2_rows(pack, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(rows_k.cpu(), rows_p) and torch.equal(ring_k.cpu(), ring_p)
+    assert torch.equal(rows_k, whole) and torch.equal(ring_k, ring_w)
+
+
+@pytest.mark.parametrize("short", [1, 10, 31, 32, 33])
+def test_mxu2_kernel_short_segment_ring_out(cuda, short):
+    """A segment of fewer substeps than the ring holds: ring_out is its
+    substeps' blocks over the rest of ring_in."""
+    cols, ranges = _table(lz4tpu_torch.compress(_src_text(300_000)))
+    pack = tmx.pack_dense2(*cols, chain_ranges=ranges)
+    seed = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, 65536, dtype=np.uint8))
+    code = torch.from_numpy(pack.code[7:7 + short])
+    scal = torch.from_numpy(pack.scal[7:7 + short])
+    rows, ring, rows_p, ring_p = _route_both(code, scal, [(0, short, 1)],
+                                             seed, cuda)
+    assert torch.equal(rows, rows_p) and torch.equal(ring, ring_p)
+    mine = np.zeros(65536, bool)
+    for i in range(min(short, 32)):
+        blk = (int(scal[short - 1 - i, 0]) & 255) // 8
+        mine[blk * 2048:(blk + 1) * 2048] = True
+    assert np.array_equal(ring.numpy()[~mine], seed.numpy()[~mine])
+
+
+@pytest.mark.parametrize("n_sub", [2, 33, 257, 1025])
+def test_mxu2_kernel_deepest_chain(cuda, n_sub):
+    """Chains n_sub - 1 links deep: the passes_for(n_sub) passes cover
+    them; also split into three segments and with a segment gap."""
+    code, scal = (torch.from_numpy(a) for a in edge.deep_chain(n_sub))
+    for segs in ([(0, n_sub, 0)],
+                 [(0, 1, 0), (1, n_sub // 2, 1), (n_sub // 2, n_sub, 0)],
+                 [(1, n_sub, 0)]):
+        rows, ring, rows_p, ring_p = _route_both(code, scal, segs, None, cuda)
+        assert torch.equal(rows, rows_p) and torch.equal(ring, ring_p)
+
+
+def test_mxu2_kernel_counts_one_launch_a_call(cuda):
+    cols, ranges = _table(lz4tpu_torch.compress(_src_text(100_000)))
+    pack = tmx.pack_dense2(*cols, chain_ranges=ranges)
+    n0 = _kernels.LAUNCHES["mxu2_route"]
+    tmx.decode_dense2_rows(pack, cuda, part_subs=7)
+    assert _kernels.LAUNCHES["mxu2_route"] == n0 + -(-pack.n_sub // 7)
+
+
+def test_mxu2_decode_refuses_other_ring_rows(cuda):
+    cols, ranges = _table(lz4tpu_torch.compress(_src_text(100_000)))
+    pack = tmx.pack_dense2(*cols, chain_ranges=ranges)
+    pack.scal[5, 0] = (int(pack.scal[5, 0]) + 8) & 255
+    n0 = _kernels.LAUNCHES["mxu2_route"]
+    with pytest.raises(ValueError, match="advance 8"):
+        tmx.decode_dense2_rows(pack, cuda)
+    assert _kernels.LAUNCHES["mxu2_route"] == n0
+
+
+@pytest.mark.parametrize("n_sub", [1, 64, 131, 132, 133, 1055, 1056, 1057,
+                                   2500])
+def test_fused_expand_kernel_grid_sizes(cuda, n_sub):
+    """H1's expand below, at and above one block a substep on every SM
+    (132) and eight (1056), against expand_plain."""
+    cols, ranges = _table(lz4tpu_torch.compress(_frag_text(5_200_000, 17)))
+    prep = tfu.prep_fused(*cols, chain_ranges=ranges, pooled=False)
+    assert prep.n_sub >= n_sub
+    t = [torch.from_numpy(np.ascontiguousarray(getattr(prep, k)[:n_sub]))
+         for k in ("seqrec", "scal", "patch")]
+    got = tfu.expand(*(a.to(cuda) for a in t))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tfu.expand_plain(*t))
