@@ -14,21 +14,25 @@ g++:  ``python3 chip_smoke.py``.  It
    kernels must equal the native host hash and the segment kernel the
    original bytes.  Kernels are timed with CUDA events, and each gets
    the least time the card could take for the same work (its bound);
-4. drives six paths over seeded in-process corpora, the launch
+4. drives seven paths over seeded in-process corpora, the launch
    counters set to 0 before each and read after it:
    ``decompress_to_device(verify="host")``,
    ``decompress_to_device(verify="device")``, ``decompress_device``
    (engines auto / pallas / resolve, and ``decompress(backend=
    "device")``), the A/B harness of the mxu2 route variants
    (``lz4tpu_torch.exp.ab``, short setting),
-   ``decompress_to_device(pipelined=True)`` and one
+   ``decompress_to_device(pipelined=True)``, one
    ``DecodeSession(max_inflight=4)`` answering every corpus three ways,
-   requiring the original bytes, the planned engines and the kernels
-   each path must launch; then times ``verify="host"`` against
-   ``verify="device"``, pipelined against monolithic, and the session
-   against a serial loop (with the serial host-stage rate beside them)
-   end to end in alternating turns, pinned staging against the
-   pageable copy, and takes the device busy share with torch.profiler;
+   and ``dist.decompress_sharded`` on a one-entry mesh and on four
+   entries of cuda:0 (each on its own stream), requiring the original
+   bytes, the planned engines or sharding tier and the kernels each
+   path must launch; then times ``verify="host"`` against
+   ``verify="device"``, pipelined against monolithic, the session
+   against a serial loop (with the serial host-stage rate beside them),
+   and ``decompress_to_device`` against the sharded decode on both
+   meshes, end to end in alternating turns, pinned staging against the
+   pageable copy, and takes the device busy share with torch.profiler
+   (and whether the four span units' routes overlap on the card);
 5. checks that corrupted frames raise what
    ``lz4tpu_torch.decompress_host`` raises, under both verify modes;
 6. times the device content checksum against a fetch and the native
@@ -42,6 +46,7 @@ outside a checkout of the repository, it exits nonzero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import re
@@ -258,6 +263,22 @@ def expand_shapes(np, lt, tpl, corp):
              fu.PART_SUBS))
 
 
+def fill_shapes(np, lt, tpl, corp):
+    """What H2 is timed on, as ``(name, vals)``: z9m's block-fill plan
+    (18 blocks of 512 KiB, the main path's launch) and 256 blocks
+    (128 MiB) of seeded int32 values with their high bits set."""
+    from lz4tpu_torch.device import sparse_decode as sp
+
+    prog = plan_of(np, lt, tpl, corp["z9m"][0])[3].sparse[0][1]
+    fill = sp._plan_block_fill(prog.ops, prog.n_out)
+    need(fill is not None, "z9m did not plan a block fill")
+    wide = np.random.default_rng(17).integers(
+        -2**31, 2**31 - 1, 256, dtype=np.int64).astype(np.int32)
+    return ((f"z9m, {fill[0].size} blocks of 512 KiB",
+             np.ascontiguousarray(fill[0].reshape(-1))),
+            ("256 blocks of 512 KiB", wide))
+
+
 def route_shapes(np, lt, tpl, corp, words):
     """What H3 is timed on, as ``(name, pack)``: src1m (one dense chain of
     512 substeps) and words32m (one of 16,384)."""
@@ -362,6 +383,13 @@ def chain_depth(np, cols) -> int:
             lo = md - max(off, 1)
             depth[md:md + ml] = 1 + int(depth[lo:min(lo + ml, md)].max())
     return int(depth.max())
+
+
+def fill_library(torch, vals, blk):
+    """One PyTorch call computing the block fill: a copy of an expanded
+    view (timed beside kernel H2; the port never calls it)."""
+    return ((vals & 255).to(torch.uint8)[:, None]
+            .expand(vals.shape[0], blk).contiguous().reshape(-1))
 
 
 def kernel_name(mangled: str) -> str:
@@ -649,23 +677,36 @@ def kernel_phase(torch, np, lt, tpl, corp, words, dev, name_card, probe):
            "bytes", f"src1m, {ab_code.shape[0]} substeps of {mx.SUB}, "
            "variant exact", plain_shape=ab_plain_shape)
 
-    # H2 on z9m: the block-fill plan's 18 blocks of 512 KiB
-    _buf, _p, _t, plan, _st = plan_of(np, lt, tpl, corp["z9m"][0])
-    ((_chain, prog),) = plan.sparse
-    fill = sp._plan_block_fill(prog.ops, prog.n_out)
-    need(fill is not None, "z9m did not plan a block fill")
-    vals = torch.from_numpy(fill[0].reshape(-1)).to(dev)
-    got_k = sp.block_fill(vals)
-    got_p = sp.block_fill_plain(vals)
-    torch.cuda.synchronize()
-    record("block_fill", max_abs_err(torch, got_k, got_p),
-           cuda_ms(torch, lambda: sp.block_fill(vals), 50),
-           cuda_ms(torch, lambda: sp.block_fill_plain(vals), 50),
-           1e3 * nbytes(vals, got_k) / HBM_BYTES_PER_S, "bytes",
-           f"z9m, {vals.shape[0]} blocks of 512 KiB",
-           library_ms=cuda_ms(
-               torch, lambda: (vals & 255).to(torch.uint8)
-               .repeat_interleave(sp.FILL_BLK), 50))
+    # H2 on z9m (the block-fill plan's 18 blocks of 512 KiB) and on 256
+    # blocks; the library call is one copy of an expanded view
+    by_shape, err = {}, 0
+    for name, v in fill_shapes(np, lt, tpl, corp):
+        vals = to_device(v, dev)
+        got_k = sp.block_fill(vals)
+        got_p = sp.block_fill_plain(vals)
+        got_l = fill_library(torch, vals, sp.FILL_BLK)
+        torch.cuda.synchronize()
+        need(torch.equal(got_l, got_p), f"block_fill: the library call "
+                                        f"differs from plain at {name}")
+        err = max(err, max_abs_err(torch, got_k, got_p))
+        by_shape[name] = {
+            "ms": cuda_ms(torch, lambda: sp.block_fill(vals), 50),
+            "plain_ms": cuda_ms(torch, lambda: sp.block_fill_plain(vals), 50),
+            "library_ms": cuda_ms(
+                torch, lambda: fill_library(torch, vals, sp.FILL_BLK), 50),
+            "bound_ms": 1e3 * nbytes(vals, got_k) / HBM_BYTES_PER_S}
+        print(f"[kernel] block_fill at {name}: kernel "
+              f"{by_shape[name]['ms']:.4f} ms, library call (expanded "
+              f"copy) {by_shape[name]['library_ms']:.4f} ms, bound "
+              f"{by_shape[name]['bound_ms']:.4f} ms (bytes), plain "
+              f"{by_shape[name]['plain_ms']:.4f} ms [{name_card}]",
+              flush=True)
+        del got_k, got_p, got_l
+    main_f = next(iter(by_shape.values()))
+    record("block_fill", err, main_f["ms"], main_f["plain_ms"],
+           main_f["bound_ms"], "bytes", next(iter(by_shape)),
+           library_ms=main_f["library_ms"])
+    rows["block_fill"]["by_shape"] = by_shape
 
     # the xxh32 chain alone: time per round of the dependent lane update
     rounds = 4_000_000
@@ -1463,13 +1504,18 @@ def busy_phase(torch, lt, corp, name_card, calls=3):
                           for e in top) + f" [{name_card}]", flush=True)
 
 
-def error_phase(lt, corp):
+def corrupted_frames(corp) -> dict:
+    """A block under its checksum and a content checksum, each flipped."""
     block = bytearray(corp["frag2m-bsum"][0])
     block[300] ^= 0x20          # inside block 0, under its checksum
     content = bytearray(corp["frag1m"][0])
     content[-1] ^= 0x01         # the content checksum
-    for what, data in (("corrupted block", bytes(block)),
-                       ("flipped content checksum", bytes(content))):
+    return {"corrupted block": bytes(block),
+            "flipped content checksum": bytes(content)}
+
+
+def error_phase(lt, corp):
+    for what, data in corrupted_frames(corp).items():
         try:
             lt.decompress_host(data)
         except lt.Lz4Error as e:
@@ -1514,6 +1560,224 @@ def small_fetch_phase(torch, np, corp, dev, name_card):
         print(f"[small_fetch] {kib} KiB: device kernel {dev_ms:.4f} ms, "
               f"fetch + native hash {fetch_ms:.4f} ms (host clock, "
               f"median of 5) [{name_card}]", flush=True)
+
+
+def sharded_corpora(lt, corp):
+    """What the sharded path decodes: the served corpora and z9m-indep
+    (z9m in independent 4 MiB blocks: three sparse chains, 4, 4 and 1
+    MiB)."""
+    cases = {name: corp[name][:2] for name in SERVED}
+    z9m = corp["z9m"][1]
+    cases["z9m-indep"] = (lt.compress(z9m, block_independence=True), z9m)
+    return cases
+
+
+# each corpus's tier and exact launches on one entry and on four:
+# "resolver" is tier 3 (torch ops, no kernel of ours), "spans" four span
+# units (three with a seeded ring), "chains" chain groups.  On one entry
+# every single-chain corpus takes the resolver.
+FUSED4 = {"fused_expand": 4, "fused_route": 4}
+SHARDED_ONE = {"frag32m-indep": ("chains", {"fused_expand": 2,
+                                            "fused_route": 2}),
+               "z9m-indep": ("chains", {"block_fill": 3})}
+SHARDED_FOUR = {"z9m": ("resolver", {}), "b3.5m": ("resolver", {}),
+                "frag1m": ("spans", FUSED4), "frag32m": ("spans", FUSED4),
+                "frag2m-bsum": ("spans", FUSED4),
+                "frag2m-legacy": ("spans", FUSED4),
+                "frag32m-indep": ("chains", FUSED4),
+                "src1m": ("chains", {"mxu2_route": 1}),
+                "z9m-indep": ("chains", {"block_fill": 3})}
+
+
+@contextlib.contextmanager
+def host_decode_refused():
+    """Within: the decoders' fallback to ``decompress_host`` (taken on
+    any Lz4Error, a wrong device result under a content checksum among
+    them) fails the smoke, so every byte of a sound frame comes from the
+    card."""
+    from lz4tpu_torch import api
+
+    real = api.decompress_host
+
+    def refuse(data, reservation=None):
+        raise SmokeFailure("a sound frame fell back to decompress_host")
+
+    api.decompress_host = refuse
+    try:
+        yield
+    finally:
+        api.decompress_host = real
+
+
+def sharded_tier(np, lt, tpl, dist, data, mesh):
+    """``(tier, units)`` that decompress_sharded takes for ``data`` on
+    ``mesh`` (a pure function of the table and the mesh size)."""
+    buf, _p, table, _plan, _st = plan_of(np, lt, tpl, data)
+    if not dist._use_chains(table, mesh.size):
+        return "resolver", None
+    units, split = dist._work_units(table, buf, mesh.size)
+    return ("spans" if split else "chains"), units
+
+
+def sharded_path(torch, np, lt, tpl, _kernels, corp, name_card):
+    """decompress_sharded on a one-entry mesh (make_mesh(): cuda:0) and
+    on four entries of cuda:0, each on its own stream: every corpus's
+    bytes (made on the card: no fallback to decompress_host), its tier
+    and the exact launches of each kernel, decode_sharded's bytes for
+    resolver corpora, decode_sharded_chains_to_device's segments against
+    the bytes at their offsets, sharded_span_assignment as a partition
+    of the output, and corrupted frames raising what decompress_host
+    raises."""
+    from lz4tpu_torch import dist
+
+    one = dist.make_mesh()
+    four = dist.Mesh(["cuda:0"] * 4)
+    need(one.size == 1 and one.entries[0].device == torch.device("cuda", 0),
+         f"make_mesh() on one card gave {one}")
+    need(len({id(e.stream) for e in four.entries}) == 4,
+         "the four entries do not have a stream each")
+    cases = sharded_corpora(lt, corp)
+    errors = {}
+    for what, data in corrupted_frames(corp).items():
+        try:
+            lt.decompress_host(data)
+        except lt.Lz4Error as e:
+            errors[what] = (data, e)
+    need(len(errors) == 2, "decompress_host accepted a corrupted frame")
+    _kernels.reset_launches()
+    for label, mesh in (("1 entry", one), ("4 entries", four)):
+        for name, (data, blob) in cases.items():
+            tier, units = sharded_tier(np, lt, tpl, dist, data, mesh)
+            want, runs = (SHARDED_ONE.get(name, ("resolver", {}))
+                          if mesh.size == 1 else SHARDED_FOUR[name])
+            need(tier == want, f"{name} on {label}: tier {tier}, expected "
+                               f"{want}")
+            before = dict(_kernels.LAUNCHES)
+            s = time.perf_counter()
+            with host_decode_refused():
+                out = dist.decompress_sharded(data, mesh)
+            ms = 1e3 * (time.perf_counter() - s)
+            need(out == blob, f"{name}: decompress_sharded on {label} "
+                              "differs from the original")
+            ran = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+            ran = {k: v for k, v in ran.items() if v}
+            need(ran == runs, f"{name} on {label}: launched {ran}, expected "
+                              f"{runs}")
+            seeded = 0
+            if tier == "spans":
+                spans = [u for u in units if isinstance(u, dist.SpanUnit)]
+                seeded = sum(u.ring is not None for u in spans)
+                need(len(spans) == 4 and seeded == 3,
+                     f"{name} on {label}: {len(spans)} span units, "
+                     f"{seeded} seeded")
+            print(f"[sharded] {name} on {label}: tier {tier}"
+                  + (f", {len(units)} units, {seeded} with a seeded ring"
+                     if units else "")
+                  + f", {ms:.3f} ms (first call), launches {ran} "
+                  f"[{name_card}]", flush=True)
+            buf, _p, table, _plan, _st = plan_of(np, lt, tpl, data)
+            if tier == "resolver":
+                got = dist.decode_sharded(table, buf, mesh)
+                need(got.tobytes() == blob, f"{name} on {label}: "
+                                            "decode_sharded differs")
+                continue
+            segs = dist.decode_sharded_chains_to_device(table, buf, mesh)
+            got = sorted((lo, lo + t.shape[0]) for lo, t in segs)
+            need(got == dist.sharded_span_assignment(table, buf, mesh)[0]
+                 and got[0][0] == 0 and got[-1][1] == len(blob)
+                 and all(a[1] == b[0] for a, b in zip(got, got[1:])),
+                 f"{name} on {label}: segments {got[:4]}... do not "
+                 "partition the output as sharded_span_assignment says")
+            for lo, t in segs:
+                need(t.is_cuda, f"{name} on {label}: the segment at {lo} "
+                                "is not on the card")
+                need(t.cpu().numpy().tobytes() == blob[lo:lo + t.shape[0]],
+                     f"{name} on {label}: the segment at {lo} differs")
+        for what, (data, want) in errors.items():
+            try:
+                dist.decompress_sharded(data, mesh)
+            except lt.Lz4Error as e:
+                got = e
+            else:
+                raise SmokeFailure(f"decompress_sharded decoded the {what}")
+            need(type(got) is type(want) and str(got) == str(want),
+                 f"error parity ({what}, {label}): {type(got).__name__}"
+                 f"({got}) vs {type(want).__name__}({want})")
+        print(f"[sharded] corrupted frames on {label}: the classes and "
+              "messages of decompress_host", flush=True)
+    return dict(_kernels.LAUNCHES)
+
+
+def sharded_phase(torch, lt, corp, name_card, pairs=5, calls=3):
+    """frag32m end to end in turns: decompress_to_device (one launch
+    pair, output on the card) against decompress_sharded on one entry
+    (the resolver) and on four entries of cuda:0 (four span units);
+    then each one's device busy share with torch.profiler, and whether
+    the four span units' fused_route launches overlapped on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lz4tpu_torch import dist
+
+    data = corp["frag32m"][0]
+    one = dist.make_mesh()
+    four = dist.Mesh(["cuda:0"] * 4)
+    fns = {"decompress_to_device": lambda: lt.decompress_to_device(data),
+           "decompress_sharded, 1 entry":
+               lambda: dist.decompress_sharded(data, one),
+           "decompress_sharded, 4 entries":
+               lambda: dist.decompress_sharded(data, four)}
+    with host_decode_refused():
+        ms = in_turns(torch, fns, pairs)
+    print("[sharded] frag32m: " + " against ".join(
+        f"{k} {med_range(t)}" for k, t in ms.items())
+        + f" (median and range of {pairs}, in turns) [{name_card}]",
+        flush=True)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with host_decode_refused(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        rows = [e for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        busy_ms = sum(dev_us(e) for e in rows) / 1e3
+        need(busy_ms > 0, f"[busy] {name}: the profiler recorded no device "
+                          "time")
+        route_ms = sum(dev_us(e) for e in rows
+                       if "fused_route" in e.key) / 1e3
+        top = sorted(rows, key=lambda e: -dev_us(e))[:3]
+        # fused_route kernels as intervals on the card's clock
+        spans = sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and "fused_route" in e.name)
+        most, live, union, end = 0, [], 0.0, float("-inf")
+        for a, b in spans:
+            live = [x for x in live if x > a] + [b]
+            most = max(most, len(live))
+            union += max(0.0, b - max(a, end))
+            end = max(end, b)
+        print(f"[busy] frag32m, {name}: device busy {busy_ms:.3f} ms of "
+              f"{wall_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}% over "
+              f"{calls} calls; fused_route {route_ms:.3f} ms in "
+              f"{len(spans)} launches, at most {most} at once, on the card "
+              f"for {union / 1e3 / calls:.3f} ms a call; most: "
+              + ", ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms"
+                          for e in top) + f" [{name_card}]", flush=True)
+        if name.endswith("4 entries"):
+            need(len(spans) == 4 * calls and most >= 2,
+                 f"the four span units' fused_route launches did not "
+                 f"overlap ({len(spans)} launches, at most {most} at once)")
 
 
 def main() -> int:
@@ -1589,10 +1853,13 @@ def main() -> int:
                                         card)
     paths["session"] = session_path(torch, lt, tpl, _kernels, corp, dev,
                                     card)
+    paths["sharded"] = sharded_path(torch, np, lt, tpl, _kernels, corp,
+                                    card)
     verify_compare(torch, lt, corp, card)
     sustained_phase(torch, np, lt, tpl, corp, card)
     staging_phase(torch, np, dev, card)
     busy_phase(torch, lt, corp, card)
+    sharded_phase(torch, lt, corp, card)
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     for name, n in launches.items():
         need(n > 0, f"kernel {name} was never launched by a path")

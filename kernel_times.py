@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Times of the redesigned kernels (``segment_decode``, ``fused_route``,
-``fused_expand``, ``mxu2_route``) in two checkouts, in turns on one card.
+``fused_expand``, ``mxu2_route``, ``block_fill``) in two or more
+checkouts, in turns on one card.
 
 Run from the root of a checkout on a machine with a GPU::
 
-    python kernel_times.py --turns OLD_TREE NEW_TREE
+    python kernel_times.py --turns OLD_TREE NEW_TREE [MORE_TREES ...]
 
-measures OLD, NEW, NEW, OLD, each in a process of its own that imports
-``lz4tpu_torch`` from that tree (and builds its kernels there), and
-prints every time with the card's name and power limit.  The inputs are
-the same for both: the seeded corpora of the ``chip_smoke.py`` beside
-this script.  ``--tree PATH`` measures one tree and prints one JSON
-object.
+measures OLD, NEW, NEW, OLD (with more trees: every tree in order, then
+in reverse), each in a process of its own that imports ``lz4tpu_torch``
+from that tree (and builds its kernels there), and prints every time
+with the card's name and power limit.  The inputs are the same for all:
+the seeded corpora of the ``chip_smoke.py`` beside this script.
+``--tree PATH`` measures one tree and prints one JSON object;
+``--kernels a,b`` times only those kernels (the ``engines`` stage goes
+with ``engines``).
 
 Measured: ``segment_decode`` (CUDA events behind a spin kernel, median
 of 5) on the shapes ``chip_smoke.segment_shapes`` names: src1m and
@@ -22,8 +25,13 @@ on frag1m's one chain and on frag32m-indep's 8 chains in one launch;
 names (a 64-substep pipelined chunk, frag1m's 556 substeps, frag32m's
 first part of 8192); ``mxu2_route`` (median of 20, of 5 on words32m) on
 ``chip_smoke.route_shapes``: src1m and words32m, each one dense chain;
-and the ``engines`` stage of ``decompress_to_device`` on src1m, frag32m
-and frag32m-indep (host clock, synchronised, median of 5).
+``block_fill`` (median of 50) on z9m's 18 blocks of 512 KiB and on 256
+blocks (128 MiB) of seeded values with high bits set (and, as the floor
+under such a time, an empty launch), beside one
+PyTorch copy of the same function, ``(vals & 255).to(torch.uint8)[:,
+None].expand(n, 1 << 19).contiguous()`` (the library call); and the
+``engines`` stage of ``decompress_to_device`` on src1m, frag32m and
+frag32m-indep (host clock, synchronised, median of 5).
 """
 
 from __future__ import annotations
@@ -40,7 +48,11 @@ import chip_smoke as cs
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
-def measure(tree: pathlib.Path) -> dict:
+KERNELS = ("segment_decode", "fused_route", "fused_expand", "mxu2_route",
+           "block_fill", "engines")
+
+
+def measure(tree: pathlib.Path, kernels=KERNELS) -> dict:
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
@@ -60,7 +72,8 @@ def measure(tree: pathlib.Path) -> dict:
     out = {"tree": str(tree), "card": cs.card_line()}
     corp = cs.corpora(np, lt)
 
-    for name, data, blob in cs.segment_shapes(np, lt, corp):
+    for name, data, blob in (cs.segment_shapes(np, lt, corp)
+                             if "segment_decode" in kernels else ()):
         buf, parsed, table, _plan, _st = cs.plan_of(np, lt, tpl, data)
         chains = [c for c in tpl._chains_of(table) if c.out_hi > c.out_lo]
         cols, rws = tpl._segment_tables(parsed, table, chains)
@@ -81,7 +94,8 @@ def measure(tree: pathlib.Path) -> dict:
         out[f"segment_decode {name} ({ch.shape[0]} chains)"] = cs.cuda_ms(
             torch, run, 5)
 
-    for name in ("frag1m", "frag32m-indep"):
+    for name in (("frag1m", "frag32m-indep")
+                 if "fused_route" in kernels else ()):
         _b, _p, _t, plan, _s = cs.plan_of(np, lt, tpl, corp[name][0])
         prep = plan.fused_prep
         n = prep.n_sub
@@ -96,7 +110,8 @@ def measure(tree: pathlib.Path) -> dict:
                 pos, lits, t["winq"], t["scal"], segs), 20)
         del pos
 
-    for name, prep, n in cs.expand_shapes(np, lt, tpl, corp):
+    for name, prep, n in (cs.expand_shapes(np, lt, tpl, corp)
+                          if "fused_expand" in kernels else ()):
         t = [to_device(np.ascontiguousarray(getattr(prep, k)[:n]), dev)
              for k in ("seqrec", "scal", "patch")]
         if not torch.equal(fu.expand(*t), fu.expand_plain(*t)):
@@ -106,8 +121,9 @@ def measure(tree: pathlib.Path) -> dict:
 
     # the wrapper is private in a tree whose H3 is pointer jumping
     route = getattr(mx, "_route", None) or mx.route
-    words = cs.words32m(np, lt)
-    for name, pack in cs.route_shapes(np, lt, tpl, corp, words):
+    words = cs.words32m(np, lt) if "mxu2_route" in kernels else None
+    for name, pack in (cs.route_shapes(np, lt, tpl, corp, words)
+                       if words else ()):
         code, scal = to_device(pack.code, dev), to_device(pack.scal, dev)
         segs = segments_tensor(part_segments(pack.out_spans, 0, pack.n_sub,
                                              False), dev)
@@ -122,7 +138,31 @@ def measure(tree: pathlib.Path) -> dict:
             5 if name.startswith("words") else 20)
         del code
 
-    for name in ("src1m", "frag32m", "frag32m-indep"):
+    if "block_fill" in kernels:
+        from lz4tpu_torch import _kernels
+        from lz4tpu_torch.device import sparse_decode as sp
+
+        # the floor under any launch timed this way: one block of the
+        # chain probe doing no round
+        probe = cs.load_probe(torch, *cs.start_probe_build(_kernels))
+        out["an empty launch (chain probe, 0 rounds)"] = cs.cuda_ms(
+            torch, lambda: probe["xxh32"](0), 50)
+
+        for name, v in cs.fill_shapes(np, lt, tpl, corp):
+            vals = to_device(v, dev)
+            got = sp.block_fill(vals)
+            if not (torch.equal(got, sp.block_fill_plain(vals))
+                    and torch.equal(got, cs.fill_library(torch, vals,
+                                                      sp.FILL_BLK))):
+                raise SystemExit(f"block_fill: {name} differs from plain")
+            del got
+            out[f"block_fill {name}"] = cs.cuda_ms(
+                torch, lambda: sp.block_fill(vals), 50)
+            out[f"block_fill library call {name}"] = cs.cuda_ms(
+                torch, lambda: cs.fill_library(torch, vals, sp.FILL_BLK), 50)
+
+    for name in (("src1m", "frag32m", "frag32m-indep")
+                 if "engines" in kernels else ()):
         data = corp[name][0]
         cs.stages_of(torch, np, lt, tpl, data, dev, "device")
         out[f"engines stage {name}"] = statistics.median(
@@ -131,12 +171,15 @@ def measure(tree: pathlib.Path) -> dict:
     return out
 
 
-def turns(old: pathlib.Path, new: pathlib.Path) -> int:
+def turns(trees: list, kernels: str) -> int:
+    order = list(trees) + list(trees)[::-1]
+    labels = (["old", "new", "new", "old"] if len(trees) == 2
+              else [t.name or str(t) for t in order])
     runs = []
-    for label, tree in (("old", old), ("new", new), ("new", new),
-                        ("old", old)):
+    for label, tree in zip(labels, order):
         r = subprocess.run(
-            [sys.executable, __file__, "--tree", str(tree)],
+            [sys.executable, __file__, "--tree", str(tree),
+             "--kernels", kernels],
             capture_output=True, text=True, check=False)
         if r.returncode != 0:
             print(r.stdout, r.stderr, file=sys.stderr)
@@ -148,19 +191,26 @@ def turns(old: pathlib.Path, new: pathlib.Path) -> int:
             continue
         print(f"[turns] {key}: " + ", ".join(
             f"{label} {res[key]:.4f}" for label, res in runs)
-            + f" ms (old, new, new, old) [{card}]", flush=True)
+            + f" ms ({', '.join(labels)}) [{card}]", flush=True)
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=pathlib.Path)
-    ap.add_argument("--turns", nargs=2, type=pathlib.Path,
-                    metavar=("OLD_TREE", "NEW_TREE"))
+    ap.add_argument("--turns", nargs="+", type=pathlib.Path,
+                    metavar="TREE")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
     args = ap.parse_args()
     if args.turns:
-        return turns(*args.turns)
-    print(json.dumps(measure(args.tree or ROOT)))
+        if len(args.turns) < 2:
+            ap.error("--turns needs two trees or more")
+        return turns(args.turns, args.kernels)
+    kernels = tuple(args.kernels.split(","))
+    unknown = set(kernels) - set(KERNELS)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}")
+    print(json.dumps(measure(args.tree or ROOT, kernels)))
     return 0
 
 

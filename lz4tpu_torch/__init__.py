@@ -12,8 +12,10 @@ The device side covers the batched decode (:func:`decompress_to_device`,
 engines (sparse programs, the fused kernel, the mxu2 kernel, the
 segment-copy kernel, the byte-parallel resolver), checksum
 verification on the device (``verify="device"``), the pipelined
-single-chain decode (``pipelined=True``) and the request pipeline
-(:class:`DecodeSession`: a prep thread with its own CUDA stream).
+single-chain decode (``pipelined=True``), the request pipeline
+(:class:`DecodeSession`: a prep thread with its own CUDA stream) and the
+sharded decode over a mesh of devices and processes
+(:func:`decompress_sharded`, ``lz4tpu_torch.dist``).
 Every kernel is CUDA
 C++ for ``sm_90a`` (``csrc/``) beside a plain PyTorch version that runs
 on the CPU.
@@ -48,6 +50,7 @@ from .api import (
     min_buffer_size,
 )
 from .pipeline import decompress_device, decompress_to_device
+from .dist import decompress_sharded
 
 
 def __getattr__(name):
@@ -60,14 +63,6 @@ def __getattr__(name):
         globals()["DecodeSession"] = _cls
         return _cls
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def decompress_sharded(*args, **kwargs):
-    """Not ported yet: multi-device decode of ``lz4tpu.dist`` and
-    ``lz4tpu.spans``."""
-    raise NotImplementedError(
-        "lz4tpu_torch.decompress_sharded: multi-device decode "
-        "(lz4tpu.dist, lz4tpu.spans) is not ported yet")
 
 
 def compress_device(*args, **kwargs):

@@ -442,6 +442,59 @@ def _check_windows(winq: np.ndarray, scal: np.ndarray, n_win: int) -> None:
         raise ValueError("fused prep: literal window out of range")
 
 
+@dataclasses.dataclass
+class StagedFused:
+    """A FusedPrep staged on the device by :func:`stage_fused_rows`,
+    ready for :func:`launch_fused_rows`."""
+
+    device: torch.device
+    lits: torch.Tensor
+    seqrec: torch.Tensor
+    patch: torch.Tensor
+    winq: torch.Tensor
+    scal: torch.Tensor
+    bounds: list           # [(p0, p1)] substeps of each launch pair
+    part_segs: list        # a segment table a launch pair
+    ring_in: torch.Tensor | None
+
+
+def stage_fused_rows(prep: FusedPrep, device, ring_in=None,
+                     part_subs: int | None = None) -> StagedFused:
+    """The host half of :func:`decode_fused_rows`: check the windows and
+    stage every array the launches read (on the current stream), so a
+    caller that decodes several preps can stage them all before it
+    launches any."""
+    dev = torch.device(device)
+    n = prep.n_sub
+    _check_windows(prep.winq[:n], prep.scal[:n], prep.lits.shape[0])
+    part = part_subs or PART_SUBS
+    bounds = [(p0, min(p0 + part, n)) for p0 in range(0, n, part)]
+    # the small tables share one staging copy
+    winq, scal, *part_segs = to_device_packed(
+        [prep.winq[:n], prep.scal[:n]]
+        + [segments_array(part_segments(prep.out_spans, p0, p1,
+                                        seeded=ring_in is not None))
+           for p0, p1 in bounds], dev)
+    return StagedFused(
+        device=dev, lits=to_device(prep.lits, dev),
+        seqrec=to_device(prep.seqrec[:n], dev),
+        patch=to_device(prep.patch[:n], dev), winq=winq, scal=scal,
+        bounds=bounds, part_segs=part_segs, ring_in=ring_in)
+
+
+def launch_fused_rows(st: StagedFused):
+    """The device half of :func:`decode_fused_rows`: one expand and one
+    route launch a part, each part's ring seeding the next."""
+    ring = st.ring_in
+    parts = []
+    for (p0, p1), segs in zip(st.bounds, st.part_segs):
+        pos17 = expand(st.seqrec[p0:p1], st.scal[p0:p1], st.patch[p0:p1])
+        rows, ring = route(pos17, st.lits, st.winq[p0:p1], st.scal[p0:p1],
+                           segs, ring)
+        parts.append(rows)
+    return (parts[0] if len(parts) == 1 else torch.cat(parts)), ring
+
+
 def decode_fused_rows(prep: FusedPrep, device, ring_in=None,
                       part_subs: int | None = None):
     """Decode a FusedPrep on ``device``; returns ``(rows, ring_out)``:
@@ -451,30 +504,10 @@ def decode_fused_rows(prep: FusedPrep, device, ring_in=None,
     ring seeding the next (bounds the pos17 scratch at 4 B/byte of one
     part).  ``ring_in`` seeds the first chain's ring."""
     dev = torch.device(device)
-    n = prep.n_sub
-    if n == 0:
+    if prep.n_sub == 0:
         return (torch.zeros(0, dtype=torch.uint8, device=dev),
                 zero_ring(dev) if ring_in is None else ring_in)
-    _check_windows(prep.winq[:n], prep.scal[:n], prep.lits.shape[0])
-    part = part_subs or PART_SUBS
-    bounds = [(p0, min(p0 + part, n)) for p0 in range(0, n, part)]
-    lits = to_device(prep.lits, dev)
-    seqrec = to_device(prep.seqrec[:n], dev)
-    patch = to_device(prep.patch[:n], dev)
-    # the small tables share one staging copy
-    winq, scal, *part_segs = to_device_packed(
-        [prep.winq[:n], prep.scal[:n]]
-        + [segments_array(part_segments(prep.out_spans, p0, p1,
-                                        seeded=ring_in is not None))
-           for p0, p1 in bounds], dev)
-    ring = ring_in
-    parts = []
-    for (p0, p1), segs in zip(bounds, part_segs):
-        pos17 = expand(seqrec[p0:p1], scal[p0:p1], patch[p0:p1])
-        rows, ring = route(pos17, lits, winq[p0:p1], scal[p0:p1], segs,
-                           ring)
-        parts.append(rows)
-    return (parts[0] if len(parts) == 1 else torch.cat(parts)), ring
+    return launch_fused_rows(stage_fused_rows(prep, dev, ring_in, part_subs))
 
 
 # ---------------------------------------------------------------------------

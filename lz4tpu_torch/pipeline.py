@@ -452,16 +452,22 @@ _DENSE_MAX_CHAIN_OUT = 1 << 30
 
 
 def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
-                stats: DecodeStats | None = None) -> DecodePlan:
+                stats: DecodeStats | None = None, chains: list | None = None,
+                engine: str = "auto") -> DecodePlan:
     """Classify every chain and prepare the fused / mxu2 inputs: the
-    plan of ``lz4tpu.pipeline.plan_decode`` with its default engine
-    (same engines per chain, same per-chain FusedOverflow isolation).
-    Chains over ``_DENSE_MAX_CHAIN_OUT`` go to ``plan.other`` (the
-    resolver)."""
+    plan of ``lz4tpu.pipeline.plan_decode`` (same engines per chain,
+    same per-chain FusedOverflow isolation).  Chains over
+    ``_DENSE_MAX_CHAIN_OUT`` go to ``plan.other`` (the resolver).
+
+    ``chains`` restricts planning to a subset (the sharded decode plans
+    one mesh entry's share with it); default is every chain of the
+    table.  ``engine``: "mxu2" sends fused-class chains to the host-pack
+    engine; any other value plans as "auto" (fused first, the mxu2 pack
+    for budget overflows), as ``lz4tpu`` does."""
     plan = DecodePlan(sparse=[], dense_chains=[], dense_pack=None, other=[])
     dense_cand = []
     dense_ranges = []
-    for chain in _chains_of(table):
+    for chain in (_chains_of(table) if chains is None else chains):
         if chain.out_hi == chain.out_lo:
             continue
         sl = slice(chain.seq_lo, chain.seq_hi)
@@ -488,7 +494,7 @@ def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
     fused_cand = [c for c in dense_cand
                   if c.out_hi - c.out_lo <= _FUSED_MAX_CHAIN_OUT]
     dense_cand = [c for c in dense_cand if c not in fused_cand]
-    if fused_cand:
+    if fused_cand and engine != "mxu2":
 
         def _try(chs):
             ranges = [(c.seq_lo, c.seq_hi) for c in chs]

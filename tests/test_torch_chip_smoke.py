@@ -81,14 +81,69 @@ def test_kernel_table_names_every_kernel_of_the_port():
                                    "verify_compare", "sustained_phase",
                                    "staging_phase", "busy_phase",
                                    "error_phase",
-                                   "small_fetch_phase"])
+                                   "small_fetch_phase", "sharded_path",
+                                   "sharded_phase"])
 def test_main_drives_every_phase(phase):
     smoke = _smoke()
     assert callable(getattr(smoke, phase))
     main_src = (REPO / "chip_smoke.py").read_text().split("def main()")[1]
     assert f"{phase}(" in main_src
-    for path in ("ab", "pipelined", "session"):
+    for path in ("ab", "pipelined", "session", "sharded"):
         assert f'paths["{path}"]' in main_src
+
+
+def test_sharded_tier_names_each_tier():
+    """The tier the sharded path asserts for a corpus is the one
+    decompress_sharded takes: the resolver, span units or chain groups
+    (small stand-ins, on CPU meshes)."""
+    import numpy as np
+
+    import lz4tpu_torch as lt
+    import lz4tpu_torch.pipeline as tpl
+    from lz4tpu_torch import dist
+
+    smoke = _smoke()
+    text = smoke.frag_text(np, 400_000, 8192, 3, 8, 11)
+    cases = {"zeros": (lt.compress(bytes(600_000)), "resolver", "resolver"),
+             "text": (lt.compress(text), "resolver", "spans"),
+             "indep": (lt.compress(text, block_max_code=4,
+                                   block_independence=True),
+                       "chains", "chains")}
+    for name, (data, one, four) in cases.items():
+        for n, want in ((1, one), (4, four)):
+            tier, units = smoke.sharded_tier(np, lt, tpl, dist, data,
+                                             dist.make_mesh(n, "cpu"))
+            assert tier == want, (name, n)
+            assert (units is None) == (tier == "resolver")
+    corp = {k: (b"", b"") for k in smoke.SERVED}
+    corp["z9m"] = (b"", bytes(1 << 20))
+    cases = smoke.sharded_corpora(lt, corp)
+    assert list(cases) == [*smoke.SERVED, "z9m-indep"]
+    assert lt.decompress(cases["z9m-indep"][0]) == bytes(1 << 20)
+    assert set(smoke.SHARDED_FOUR) == set(cases)
+    assert set(smoke.SHARDED_ONE) <= set(cases)
+
+
+def test_host_decode_refused_catches_the_fallback():
+    """Inside host_decode_refused a frame that decompress_sharded would
+    hand to decompress_host fails the smoke; a sound frame decodes; the
+    real decompress_host is back afterwards."""
+    import lz4tpu_torch as lt
+    from lz4tpu_torch import api, dist
+
+    smoke = _smoke()
+    data = bytearray(lt.compress(bytes(range(256)) * 512))
+    mesh = dist.make_mesh(2, "cpu")
+    real = api.decompress_host
+    with smoke.host_decode_refused():
+        assert dist.decompress_sharded(bytes(data), mesh) == (
+            bytes(range(256)) * 512)
+        data[-1] ^= 1                   # the content checksum
+        with pytest.raises(smoke.SmokeFailure, match="decompress_host"):
+            dist.decompress_sharded(bytes(data), mesh)
+    assert api.decompress_host is real
+    with pytest.raises(lt.Lz4Error):
+        dist.decompress_sharded(bytes(data), mesh)
 
 
 def test_served_corpora_and_last_line_shape():

@@ -588,3 +588,69 @@ def test_fused_expand_kernel_grid_sizes(cuda, n_sub):
     got = tfu.expand(*(a.to(cuda) for a in t))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), tfu.expand_plain(*t))
+
+
+@pytest.mark.parametrize("n", [1, 2, 17, 18, 256])
+def test_block_fill_kernel_shapes(cuda, n):
+    """H2 at one block, z9m's 18, 256 (128 MiB) and odd counts between,
+    with values whose high bits are set, against block_fill_plain and
+    the expanded-copy library call."""
+    vals = torch.from_numpy(np.random.default_rng(n).integers(
+        -2**31, 2**31 - 1, n, dtype=np.int64).astype(np.int32))
+    vals[0] = 0x7FFFFF00 | 0xAB
+    n0 = _kernels.LAUNCHES["block_fill"]
+    got = tsp.block_fill(vals.to(cuda))
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["block_fill"] == n0 + 1
+    want = tsp.block_fill_plain(vals)
+    assert got.shape == (n * tsp.FILL_BLK,) and torch.equal(got.cpu(), want)
+    lib = ((vals & 255).to(torch.uint8)[:, None]
+           .expand(n, tsp.FILL_BLK).contiguous().reshape(-1))
+    assert torch.equal(lib, want)
+
+
+def test_span_decode_on_card_equals_cpu(cuda):
+    """Seeded spans of one chain, routed by H1 from their boundary
+    rings, equal the plain route's rows on the CPU and the bytes."""
+    from lz4tpu_torch import spans as tsn
+
+    blob = _frag_text(700_000, 23)
+    cols, _ranges = _table(lz4tpu_torch.compress(blob))
+    ll, ml, mo, ls, buf = cols
+    ranges = tsn.plan_spans(len(blob), 4, min_subs=32)
+    assert len(ranges) == 4
+    prep = tfu.prep_fused(ll, ml, mo, ls, buf, pooled=False)
+    out = bytearray()
+    n0 = _kernels.LAUNCHES["fused_route"]
+    for a, b in ranges:
+        n = min(b * tsn.SUB, len(blob)) - a * tsn.SUB
+        ring = (None if a == 0 else
+                tsn.resolve_ring_bytes(ll, ml, mo, ls, buf, a * tsn.SUB))
+        sl = tsn.slice_prep(prep, a, b, n)
+        got = tsn.decode_span_on_device(sl, ring, a * tsn.SUB, device=cuda)
+        want = tsn.decode_span_on_device(sl, ring, a * tsn.SUB, device="cpu")
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        out += want[:n].numpy().tobytes()
+    assert bytes(out) == blob
+    assert _kernels.LAUNCHES["fused_route"] == n0 + 4
+
+
+@pytest.mark.parametrize("entries", [1, 4])
+def test_sharded_decode_on_card_equals_cpu(cuda, entries):
+    """decompress_sharded over entries of cuda:0, each on its own
+    stream, against the same mesh on the CPU, for every tier."""
+    from lz4tpu_torch import dist
+
+    mesh = dist.Mesh([cuda] * entries)
+    assert len({id(e.stream) for e in mesh.entries}) == entries
+    cpu = dist.make_mesh(entries, "cpu")
+    text = _frag_text(1_200_000, 29)
+    for blob, kw in ((text, {}), (text, dict(block_max_code=4,
+                                             block_independence=True)),
+                     (bytes(2_000_000), dict(block_max_code=5,
+                                             block_independence=True)),
+                     (_src_text(150_000), {}), (bytes(900_000), {})):
+        data = lz4tpu_torch.compress(blob, **kw)
+        assert dist.decompress_sharded(data, mesh) == blob
+        assert dist.decompress_sharded(data, cpu) == blob

@@ -265,8 +265,10 @@ def test_cuda_without_cuda_raises(monkeypatch):
 
 def test_unported_pieces_raise(monkeypatch):
     """What is still to port raises NotImplementedError naming the
-    missing piece; the pipelined decode and the session, ported since,
-    decode."""
+    missing piece; the pipelined decode, the session and the sharded
+    decode, ported since, decode."""
+    import lz4tpu_torch.dist
+
     data = lz4tpu.compress(b"abc" * 100)
     out = lz4tpu_torch.decompress_to_device(data, device="cpu",
                                             pipelined=True)
@@ -276,8 +278,10 @@ def test_unported_pieces_raise(monkeypatch):
     assert out.numpy().tobytes() == b"abc" * 100
     with lz4tpu_torch.DecodeSession(device="cpu") as s:
         assert s.submit(data).result() == b"abc" * 100
-    for fn, what in ((lz4tpu_torch.decompress_sharded, "dist"),
-                     (lz4tpu_torch.compress_device, "encode")):
+    assert lz4tpu_torch.decompress_sharded(
+        data, device="cpu") == b"abc" * 100
+    for fn, what in ((lz4tpu_torch.compress_device, "encode"),
+                     (lz4tpu_torch.dist.compress_sharded, "encode")):
         with pytest.raises(NotImplementedError, match=what):
             fn(data)
     for backend in ("device", "device-emit"):
@@ -317,3 +321,94 @@ def test_exception_classes_are_lz4tpus():
         assert ours.__name__ == theirs.__name__
         assert ([c.__name__ for c in ours.__mro__]
                 == [c.__name__ for c in theirs.__mro__])
+
+
+# ---------------------------------------------------------------------------
+# plan_decode(chains=, engine=) against lz4tpu's
+# ---------------------------------------------------------------------------
+
+def _plan_pair(data, **kw):
+    buf = np.frombuffer(data, np.uint8)
+    parsed = jpl.parse_frames(buf, FOR_ALL)
+    table = jpl.build_seq_table(buf, parsed, FOR_ALL, data)
+    chains = kw.pop("pick", lambda cs: None)(jpl._chains_of(table))
+    st_t, st_j = tpl.DecodeStats(), jpl.DecodeStats()
+    return (tpl.plan_decode(buf, parsed, table, st_t, chains=chains, **kw),
+            jpl.plan_decode(buf, parsed, table, st_j, chains=chains, **kw),
+            st_t, st_j)
+
+
+def _chain_key(c):
+    return (c.frame_id, c.seq_lo, c.seq_hi, c.out_lo, c.out_hi,
+            c.independent)
+
+
+def _assert_same_plan(pt, pj):
+    assert [(_chain_key(c), p.ops, p.n_out) for c, p in pt.sparse] == [
+        (_chain_key(c), p.ops, p.n_out) for c, p in pj.sparse]
+    for k in ("dense_chains", "fused_chains", "other"):
+        assert [_chain_key(c) for c in getattr(pt, k)] == [
+            _chain_key(c) for c in getattr(pj, k)], k
+    assert (pt.dense_pack is None) == (pj.dense_pack is None)
+    if pt.dense_pack is not None:
+        for k in ("code", "scal"):
+            assert np.array_equal(getattr(pt.dense_pack, k),
+                                  np.asarray(getattr(pj.dense_pack, k))), k
+        for k in ("n_sub", "out_spans"):
+            assert getattr(pt.dense_pack, k) == getattr(pj.dense_pack, k)
+    assert (pt.fused_prep is None) == (pj.fused_prep is None)
+    if pt.fused_prep is not None:
+        for k in ("seqrec", "lits", "winq", "scal", "patch"):
+            assert np.array_equal(getattr(pt.fused_prep, k),
+                                  np.asarray(getattr(pj.fused_prep, k))), k
+        for k in ("n_sub", "n_patches", "n_seq_recs", "out_spans",
+                  "max_off", "max_recs", "max_patches"):
+            assert getattr(pt.fused_prep, k) == getattr(pj.fused_prep, k), k
+
+
+def _indep_mixed():
+    """Independent 64 KiB blocks of fragment text and source text, and
+    a frame of zeros: fused, dense and sparse chains."""
+    blocks = b"".join(_frag_text(64 << 10, 40 + k) if k % 3 else
+                      _src_text(64 << 10) for k in range(7))
+    return (lz4tpu.compress(blocks, block_max_code=4,
+                            block_independence=True)
+            + lz4tpu.compress(bytes(300_000)))
+
+
+@pytest.mark.parametrize("pick", ["odd", "even", "first", "last", "none"])
+def test_plan_decode_chain_subset_matches_jax(pick):
+    """chains= plans only the given chains, byte for byte as lz4tpu
+    does: the same engine per chain, fused prep, mxu2 pack and sparse
+    programs."""
+    sel = {"odd": lambda cs: cs[1::2], "even": lambda cs: cs[0::2],
+           "first": lambda cs: cs[:1], "last": lambda cs: cs[-1:],
+           "none": lambda cs: []}[pick]
+    pt, pj, st_t, st_j = _plan_pair(_indep_mixed(), pick=sel)
+    _assert_same_plan(pt, pj)
+    assert (st_t.n_chains, st_t.engine_chains, st_t.engine_bytes) == (
+        st_j.n_chains, st_j.engine_chains, st_j.engine_bytes)
+    if pick == "odd":
+        assert set(st_t.engine_chains) >= {"fused", "dense"}
+
+
+@pytest.mark.parametrize("engine", ["mxu2", "auto", "something else"])
+def test_plan_decode_engine_matches_jax(engine):
+    """engine="mxu2" sends fused-class chains to the mxu2 pack; any
+    other name plans as "auto" in both packages (neither raises)."""
+    for data in (_indep_mixed(), lz4tpu.compress(_frag_text(160_000, 11))):
+        pt, pj, st_t, st_j = _plan_pair(data, engine=engine)
+        _assert_same_plan(pt, pj)
+        assert st_t.engine_chains == st_j.engine_chains
+        if engine == "mxu2":
+            assert pt.fused_prep is None and "fused" not in st_t.engine_chains
+        else:
+            assert pt.fused_prep is not None
+    data = lz4tpu.compress(_frag_text(160_000, 11))
+    buf = np.frombuffer(data, np.uint8)
+    parsed = tpl.parse_frames(buf, lz4tpu_torch.FOR_ALL)
+    table = tpl.build_seq_table(buf, parsed, lz4tpu_torch.FOR_ALL, data)
+    plan = tpl.plan_decode(buf, parsed, table, engine="mxu2")
+    segs = tpl.build_device_segments(buf, table, plan, "cpu")
+    assert tpl.assemble_device_segments(segs, table.n_out, "cpu").numpy(
+    ).tobytes() == _frag_text(160_000, 11)

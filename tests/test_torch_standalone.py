@@ -60,6 +60,12 @@ from lz4tpu_torch.exp import ab
 code, scal, n_out = ab.pack_host(lz4tpu_torch.compress(src), 3072)
 rows, ring = ab.route_variant(torch.from_numpy(code), 3072)
 assert rows.numpy()[:n_out].tobytes() == src
+# the sharded decode over a repeated CPU device, every tier
+from lz4tpu_torch import dist, spans
+mesh = dist.make_mesh(4, "cpu")
+for blob in (text, src, bytes(300000), text * 3):
+    assert lz4tpu_torch.decompress_sharded(
+        lz4tpu_torch.compress(blob), mesh) == blob
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 assert "jax" not in loaded and "lz4tpu" not in loaded
 print("standalone OK")
@@ -78,7 +84,8 @@ def _port_files():
     assert len(files) >= 21
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"lz4tpu_torch/serve.py", "lz4tpu_torch/exp/ab.py",
-            "lz4tpu_torch/exp/__init__.py", "chip_smoke.py"} <= names
+            "lz4tpu_torch/exp/__init__.py", "lz4tpu_torch/spans.py",
+            "lz4tpu_torch/dist.py", "chip_smoke.py"} <= names
     return files
 
 
@@ -110,6 +117,29 @@ def test_no_file_reaches_into_lz4tpu_by_path():
     assert pathlib.Path(native._SRC) == PKG / "native" / "lz4core.cpp"
     assert pathlib.Path(native._SO).parent == PKG / "native"
     assert (PKG / "native" / "lz4core.cpp").is_file()
+
+
+def test_sharded_decode_modules_import_only_torch_numpy_and_the_port():
+    """spans.py and dist.py (a file: ``dist/`` is git-ignored) import
+    the standard library, numpy, torch and the port's own modules."""
+    import ast
+
+    allowed = {"__future__", "concurrent", "contextlib", "dataclasses",
+               "numpy", "torch"}
+    for name in ("spans.py", "dist.py"):
+        path = PKG / name
+        assert path.is_file()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                if node.level:          # from . / from .. : the port
+                    continue
+                mods = [node.module]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] in allowed, (name, m)
 
 
 def test_no_file_imports_the_tpu_experiments():
