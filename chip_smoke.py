@@ -14,7 +14,7 @@ g++:  ``python3 chip_smoke.py``.  It
    kernels must equal the native host hash and the segment kernel the
    original bytes.  Kernels are timed with CUDA events, and each gets
    the least time the card could take for the same work (its bound);
-4. drives seven paths over seeded in-process corpora, the launch
+4. drives eight paths over seeded in-process corpora, the launch
    counters set to 0 before each and read after it:
    ``decompress_to_device(verify="host")``,
    ``decompress_to_device(verify="device")``, ``decompress_device``
@@ -26,13 +26,20 @@ g++:  ``python3 chip_smoke.py``.  It
    and ``dist.decompress_sharded`` on a one-entry mesh and on four
    entries of cuda:0 (each on its own stream), requiring the original
    bytes, the planned engines or sharding tier and the kernels each
-   path must launch; then times ``verify="host"`` against
+   path must launch; an eighth path encodes: ``compress(backend=
+   "device"|"device-emit")`` on the card against the same calls on the
+   CPU, ``dist.compress_sharded`` on both meshes against
+   ``compress(backend="device")``, every frame decoded back on the card,
+   and ``python -m lz4tpu_torch.cli lz4-bench`` as subprocesses; then
+   times ``verify="host"`` against
    ``verify="device"``, pipelined against monolithic, the session
    against a serial loop (with the serial host-stage rate beside them),
    and ``decompress_to_device`` against the sharded decode on both
    meshes, end to end in alternating turns, pinned staging against the
    pageable copy, and takes the device busy share with torch.profiler
-   (and whether the four span units' routes overlap on the card);
+   (and whether the four span units' routes overlap on the card); times
+   the device encoder's passes on one 4 MiB block stage by stage, its
+   host emitters, peak device memory and end-to-end encode rates;
 5. checks that corrupted frames raise what
    ``lz4tpu_torch.decompress_host`` raises, under both verify modes;
 6. times the device content checksum against a fetch and the native
@@ -48,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -1780,6 +1788,298 @@ def sharded_phase(torch, lt, corp, name_card, pairs=5, calls=3):
                  f"overlap ({len(spans)} launches, at most {most} at once)")
 
 
+# ---------------------------------------------------------------------------
+# the encoder
+# ---------------------------------------------------------------------------
+
+ENCODED = ("src1m", "frag1m", "b3.5m", "z9m")
+ENC_BACKENDS = ("device", "device-emit")
+HISTORY = 65536
+BLOCK = 4 << 20          # the default block; with its history: 4,259,840
+
+
+@contextlib.contextmanager
+def candidate_devices(enc):
+    """Within: the device of every candidate and decision tensor that the
+    device encoder's two passes return (the list yielded fills up)."""
+    seen = []
+    real = {n: getattr(enc, n) for n in ("_candidates_compact_device",
+                                         "_emit_inputs_device")}
+
+    def wrap(fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            seen.extend(t.device for t in (out if isinstance(out, tuple)
+                                           else (out,)))
+            return out
+        return run
+
+    for n, fn in real.items():
+        setattr(enc, n, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in real.items():
+            setattr(enc, n, fn)
+
+
+def encode_path(torch, lt, _kernels, corp, words, name_card):
+    """compress(backend="device"|"device-emit") on cuda:0 over src1m,
+    frag1m, b3.5m and z9m, held against the same calls with
+    device="cpu"; words32m's first 8 MiB through backend="device";
+    dist.compress_sharded on make_mesh() and on four entries of cuda:0
+    over frag32m and z9m, held against compress(backend="device"); every
+    candidate tensor on the card; every frame decoded back on the card
+    by decompress_to_device (no fallback to decompress_host); then the
+    CLI's lz4-bench as three subprocesses.  Returns the launch counts."""
+    import tempfile
+
+    from lz4tpu_torch import dist
+    from lz4tpu_torch.device import encode as enc
+
+    payloads = {name: corp[name][1] for name in ENCODED}
+    s = time.perf_counter()
+    want = {(n, be): lt.compress(p, backend=be, device="cpu")
+            for n, p in payloads.items() for be in ENC_BACKENDS}
+    print(f"[encode] the CPU's frames of {len(want)} encodes (torch ops "
+          f"on the host) in {time.perf_counter() - s:.2f} s", flush=True)
+    payloads["words32m[:8 MiB]"] = words[1][:8 << 20]
+    sharded = {"frag32m": corp["frag32m"][1], "z9m": corp["z9m"][1]}
+    meshes = (("1 entry", dist.make_mesh()),
+              ("4 entries", dist.Mesh(["cuda:0"] * 4)))
+    _kernels.reset_launches()
+    frames = {}
+    with candidate_devices(enc) as seen:
+        for (name, be), ref in want.items():
+            s = time.perf_counter()
+            frames[(name, be)] = lt.compress(payloads[name], backend=be)
+            ms = 1e3 * (time.perf_counter() - s)
+            need(frames[(name, be)] == ref,
+                 f"{name}: compress(backend={be!r}) on the card differs "
+                 "from device='cpu'")
+            print(f"[encode] {name} backend={be!r}: {len(payloads[name])} "
+                  f"-> {len(ref)} B, the card's bytes equal the CPU's, "
+                  f"{ms:.3f} ms (first call) [{name_card}]", flush=True)
+        w8 = "words32m[:8 MiB]"
+        frames[(w8, "device")] = lt.compress(payloads[w8], backend="device")
+        for name, p in sharded.items():
+            seq = lt.compress(p, backend="device")
+            for label, mesh in meshes:
+                s = time.perf_counter()
+                got = dist.compress_sharded(p, mesh)
+                ms = 1e3 * (time.perf_counter() - s)
+                need(got == seq, f"{name}: compress_sharded on {label} "
+                                 "differs from compress(backend='device')")
+                print(f"[encode] {name}: compress_sharded on {label} equals "
+                      f"compress(backend='device'), {len(got)} B, "
+                      f"{ms:.3f} ms [{name_card}]", flush=True)
+    need(seen and all(d.type == "cuda" for d in seen),
+         f"candidate tensors off the card: {set(seen)}")
+    payloads.update(sharded)
+    with host_decode_refused():
+        for (name, be), frame in frames.items():
+            out = lt.decompress_to_device(frame)
+            need(out.is_cuda and out.cpu().numpy().tobytes()
+                 == payloads[name],
+                 f"{name}: the frame of backend={be!r} does not decode "
+                 "back on the card")
+    counts = dict(_kernels.LAUNCHES)
+    print(f"[encode] {len(frames)} frames decoded back on the card, "
+          f"{len(seen)} candidate tensors, all on cuda; launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{name_card}]",
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "src1m.lz4").write_bytes(corp["src1m"][0])
+        (tmp / "src1m.bin").write_bytes(corp["src1m"][1])
+        for args in (["--backend", "device", "src1m.lz4"],
+                     ["--encode", "--backend", "device", "src1m.bin"],
+                     ["--backend", "device", "--profile", "trace",
+                      "src1m.lz4"]):
+            argv = [sys.executable, "-m", "lz4tpu_torch.cli", "lz4-bench",
+                    "--reps", "2", *args]
+            env = {**os.environ, "PYTHONPATH": str(HERE)}
+            r = subprocess.run(argv, cwd=tmp, env=env, capture_output=True,
+                               text=True, timeout=300)
+            need(r.returncode == 0, f"lz4-bench {' '.join(args)}: rc "
+                                    f"{r.returncode}: {r.stderr[-2000:]}")
+            print(f"[cli] python -m lz4tpu_torch.cli lz4-bench "
+                  f"{' '.join(args)}: rc 0; "
+                  + " | ".join(r.stderr.strip().splitlines())
+                  + f" [{name_card}]", flush=True)
+        need((tmp / "trace" / "trace.json").is_file(),
+             "lz4-bench --profile wrote no trace")
+    return counts
+
+
+def device_busy(torch, fn):
+    """``(device ms, kernels, host ms)`` of one synchronised fn() under
+    torch.profiler, after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - s)
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) for e in rows)
+    return us / 1e3, sum(e.count for e in rows), wall
+
+
+def encode_phase(torch, np, lt, corp, dev, name_card):
+    """The device encoder's passes on one default block (frag32m's
+    second 4 MiB with its 64 KiB of history, 4,259,840 bytes): each
+    stage by CUDA events, the copy of the result to the host, the host
+    emitters, the plain run (the same ops on the CPU), peak device
+    memory, and end-to-end encode rates on frag32m; compress_sharded's
+    peak memory on 16 blocks."""
+    from lz4tpu_torch import dist, native
+    from lz4tpu_torch.device import encode as enc
+    from lz4tpu_torch.device import to_device
+
+    frag32m = corp["frag32m"][1]
+    joined = np.frombuffer(frag32m[BLOCK - HISTORY:2 * BLOCK], np.uint8)
+    n = n_pad = joined.size
+    need(n % 1024 == 0, "the block's width is not a multiple of 1024")
+    buf = to_device(joined, dev)
+    pos = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    bound = (n + 4 * n) / HBM_BYTES_PER_S * 1e3
+    reps = 10
+
+    g4, g8 = enc._compact_grams(buf)
+    o4 = enc._sort_order([g4])
+    o8 = enc._sort_order([g4, g8])
+    c4 = enc._nearest_prev(o4, [g4], pos)
+    c8 = enc._nearest_prev(o8, [g4, g8], pos)
+    d = enc._candidates_compact_device(buf, n_pad=n_pad)
+    compact = {
+        "grams": cuda_ms(torch, lambda: enc._compact_grams(buf), reps),
+        "sorts": cuda_ms(torch, lambda: (enc._sort_order([g4]),
+                                         enc._sort_order([g4, g8])), reps),
+        "compare": cuda_ms(torch, lambda: (
+            enc._delta(enc._nearest_prev(o4, [g4], pos), pos),
+            enc._delta(enc._nearest_prev(o8, [g4, g8], pos), pos)), reps),
+        "restore": cuda_ms(torch, lambda: (enc._restore(o4, c4),
+                                           enc._restore(o8, c8)), reps),
+        "whole pass": cuda_ms(torch, lambda: enc._candidates_compact_device(
+            buf, n_pad=n_pad), reps),
+        "copy to host": cuda_ms(torch, lambda: d.cpu(), reps),
+    }
+
+    g = enc._gram_words(buf)
+    order = enc._sort_order(g)
+    ws = [w.gather(-1, order) for w in g]
+    p_s = order.to(torch.int32)
+    dlev = enc._level_deltas(ws, p_s)
+    lev = [(k, torch.where(pos + k <= n, enc._restore(order, dk), 0))
+           for k, dk in sorted(dlev.items())]
+    elen, eoff = enc._emit_inputs_device(buf, n, n_pad=n_pad)
+    emit = {
+        "grams": cuda_ms(torch, lambda: enc._gram_words(buf), reps),
+        "sort": cuda_ms(torch, lambda: (lambda o: [w.gather(-1, o)
+                                                   for w in g])(
+            enc._sort_order(g)), reps),
+        "scans": cuda_ms(torch, lambda: enc._level_deltas(ws, p_s), 3),
+        "restore": cuda_ms(torch, lambda: [
+            torch.where(pos + k <= n, enc._restore(order, dk), 0)
+            for k, dk in sorted(dlev.items())], reps),
+        "combine": cuda_ms(torch, lambda: enc._combine_levels(lev, n, n_pad),
+                           reps),
+        "whole pass": cuda_ms(torch, lambda: enc._emit_inputs_device(
+            buf, n, n_pad=n_pad), 3),
+        "copy to host": cuda_ms(torch, lambda: (elen.cpu(), eoff.cpu()),
+                                reps),
+    }
+    del g, order, ws, p_s, dlev, lev, g4, g8, o4, o8, c4, c8
+
+    d_host = d.cpu().numpy()
+    cand = enc.deltas_to_positions(d_host)
+    e_l, e_o = elen.cpu().numpy(), eoff.cpu().numpy()
+    host = {"deltas_to_positions": host_ms(
+                torch, lambda: enc.deltas_to_positions(d_host), 3),
+            "compress_block_cands": host_ms(torch, lambda: (
+                native.compress_block_cands(joined, HISTORY, BLOCK, cand)),
+                3),
+            "emit_quantized": host_ms(torch, lambda: native.emit_quantized(
+                joined, HISTORY, BLOCK, e_l, e_o), 3)}
+
+    peak = {}
+    for name, fn in (("compact pass", lambda: enc._candidates_compact_device(
+                          buf, n_pad=n_pad)),
+                     ("emission pass", lambda: enc._emit_inputs_device(
+                          buf, n, n_pad=n_pad))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+
+    busy = {}
+    for name, fn in (("compact pass", lambda: enc._candidates_compact_device(
+                          buf, n_pad=n_pad)),
+                     ("emission pass", lambda: enc._emit_inputs_device(
+                          buf, n, n_pad=n_pad))):
+        busy[name] = device_busy(torch, fn)
+
+    cpu_buf = torch.from_numpy(joined.copy())
+    s = time.perf_counter()
+    enc._candidates_compact_device(cpu_buf, n_pad=n_pad)
+    plain_compact = 1e3 * (time.perf_counter() - s)
+    s = time.perf_counter()
+    enc._emit_inputs_device(cpu_buf, n, n_pad=n_pad)
+    plain_emit = 1e3 * (time.perf_counter() - s)
+
+    for what, st, plain in (("compact pass", compact, plain_compact),
+                            ("emission pass", emit, plain_emit)):
+        print(f"[encode] {what}, one block of {n} B (4 MiB + 64 KiB "
+              "history): " + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
+              + f" ms (CUDA events, median); bound {bound:.4f} ms (bytes: "
+              f"{n} B in, {4 * n} B out, loose); plain (the same ops on "
+              f"the CPU, once) {plain:.1f} ms; peak device memory "
+              f"{peak[what]} B; torch.profiler: {busy[what][1]} kernels, "
+              f"busy {busy[what][0]:.3f} ms of {busy[what][2]:.3f} ms "
+              f"(host clock) [{name_card}]", flush=True)
+    print("[encode] host emission of that block: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in host.items())
+        + f" (host clock, median of 3) [{name_card}]", flush=True)
+
+    mb = len(frag32m) / 1e6
+    ways = {"compress(backend='device')":
+                lambda: lt.compress(frag32m, backend="device"),
+            "compress(backend='device-emit')":
+                lambda: lt.compress(frag32m, backend="device-emit"),
+            "compress(backend='host'), level 6":
+                lambda: lt.compress(frag32m),
+            "dist.compress_sharded, make_mesh()":
+                lambda: dist.compress_sharded(frag32m)}
+    for name, fn in ways.items():
+        ms = host_ms(torch, fn, 2)
+        print(f"[encode] frag32m end to end, {name}: {ms:.3f} ms = "
+              f"{mb / ms * 1e3:.3f} MB/s of payload (host clock, median "
+              f"of 2 after a warm call) [{name_card}]", flush=True)
+
+    sixteen = frag32m + frag32m[::-1]       # 64 MiB: 16 blocks of 4 MiB
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s = time.perf_counter()
+    out = dist.compress_sharded(sixteen)
+    ms = 1e3 * (time.perf_counter() - s)
+    need(lt.decompress_host(out) == sixteen,
+         "compress_sharded on 16 blocks does not round-trip")
+    print(f"[encode] compress_sharded, 16 blocks of 4 MiB on make_mesh(): "
+          f"peak device memory {torch.cuda.max_memory_allocated() - base} "
+          f"B, {ms:.3f} ms (one call) [{name_card}]", flush=True)
+
+
 def main() -> int:
     if not (HERE / "lz4tpu_torch" / "csrc").is_dir():
         print("chip_smoke: lz4tpu_torch/ not found beside the script; run "
@@ -1855,11 +2155,13 @@ def main() -> int:
                                     card)
     paths["sharded"] = sharded_path(torch, np, lt, tpl, _kernels, corp,
                                     card)
+    paths["encode"] = encode_path(torch, lt, _kernels, corp, words, card)
     verify_compare(torch, lt, corp, card)
     sustained_phase(torch, np, lt, tpl, corp, card)
     staging_phase(torch, np, dev, card)
     busy_phase(torch, lt, corp, card)
     sharded_phase(torch, lt, corp, card)
+    encode_phase(torch, np, lt, corp, dev, card)
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     for name, n in launches.items():
         need(n > 0, f"kernel {name} was never launched by a path")

@@ -15,10 +15,12 @@ verification on the device (``verify="device"``), the pipelined
 single-chain decode (``pipelined=True``), the request pipeline
 (:class:`DecodeSession`: a prep thread with its own CUDA stream) and the
 sharded decode over a mesh of devices and processes
-(:func:`decompress_sharded`, ``lz4tpu_torch.dist``).
-Every kernel is CUDA
-C++ for ``sm_90a`` (``csrc/``) beside a plain PyTorch version that runs
-on the CPU.
+(:func:`decompress_sharded`, ``lz4tpu_torch.dist``).  The encoder
+finds matches on the device (``compress(backend="device"|"device-emit")``,
+``dist.compress_sharded``; ``lz4tpu_torch.device.encode``), and the
+console tools run as ``python -m lz4tpu_torch.cli <tool>``.
+Every kernel is CUDA C++ for ``sm_90a`` (``csrc/``) beside a plain
+PyTorch version that runs on the CPU.
 """
 
 from .constants import (
@@ -65,13 +67,6 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-def compress_device(*args, **kwargs):
-    """Not ported yet: the device encoder of ``lz4tpu.device.encode``."""
-    raise NotImplementedError(
-        "lz4tpu_torch.compress_device: the device encoder "
-        "(lz4tpu.device.encode) is not ported yet")
-
-
 __all__ = [
     "Decompressor",
     "Format",
@@ -87,7 +82,6 @@ __all__ = [
     "decompress_device",
     "DecodeSession",
     "decompress_sharded",
-    "compress_device",
     "Reservation",
     "EndOfFrame",
     "FOR_ALL",

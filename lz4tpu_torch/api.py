@@ -281,6 +281,7 @@ def compress(
     level: int = 6,
     backend: str = "host",
     frame_format: str = "modern",
+    device="cuda",
 ) -> bytes:
     """Compress ``data`` into a standard LZ4 frame.
 
@@ -288,6 +289,13 @@ def compress(
     checksum on), which is what the reference test vectors use.
     ``level >= 10`` switches to the optimal parser (exact backward-DP
     sequence pricing; slowest, best ratio).
+
+    ``backend="device"`` finds matches on ``device`` (sorted grams, the
+    compact candidate stream) and emits tokens on the host;
+    ``backend="device-emit"`` decides every match on ``device`` and only
+    splices tokens on the host (``lz4tpu_torch.device.encode``).
+    ``device`` is ``"cuda"`` by default, which raises where CUDA is
+    absent, or ``"cpu"``; ``backend="host"`` ignores it.
 
     ``frame_format="legacy"`` writes the Legacy Frame Format (magic
     ``0x184C2102``, 8 MiB always-compressed blocks, no checksums, no
@@ -299,9 +307,13 @@ def compress(
     from .native import compress_block
 
     if backend in ("device", "device-emit"):
-        raise NotImplementedError(
-            f"lz4tpu_torch.compress(backend={backend!r}): the device "
-            "encoder (lz4tpu.device.encode) is not ported yet")
+        from .pipeline import _resolve_device
+
+        device = _resolve_device(device)
+    if backend == "device":
+        from .device.encode import compress_block_device
+    elif backend == "device-emit":
+        from .device.encode import compress_block_device_emit
 
     # Search effort per level (lz4-CLI-like): 1-3 shallow chains and no
     # lazy deferral (speed), 4-9 the full lazy hash chain, >=10 the
@@ -338,10 +350,19 @@ def compress(
     while pos < len(data):
         chunk = data[pos:pos + block_max]
         hist = b"" if block_independence else data[max(0, pos - 65536):pos]
-        comp = compress_block(
-            chunk, hist=hist, max_chain=eff_chain,
-            optimal=level >= 10, lazy=eff_lazy,
-        )
+        if backend == "device":
+            # match finding on the device (sorted grams), host emission
+            comp = compress_block_device(chunk, hist=hist, device=device)
+        elif backend == "device-emit":
+            # every match decided on the device; the host only splices
+            # tokens
+            comp = compress_block_device_emit(chunk, hist=hist,
+                                              device=device)
+        else:
+            comp = compress_block(
+                chunk, hist=hist, max_chain=eff_chain,
+                optimal=level >= 10, lazy=eff_lazy,
+            )
         if comp and len(comp) < len(chunk):
             out += struct.pack("<I", len(comp))
             out += comp

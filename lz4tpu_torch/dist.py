@@ -780,9 +780,136 @@ def _decompress_sharded_batch(data, mesh: Mesh | None, reservation,
     return out.tobytes()
 
 
-def compress_sharded(data, mesh: Mesh | None = None, **kwargs) -> bytes:
-    """Not ported yet: the block-parallel encoder needs the device
-    encoder (``lz4tpu.device.encode``)."""
-    raise NotImplementedError(
-        "lz4tpu_torch.dist.compress_sharded: needs the device encoder "
-        "(lz4tpu.device.encode), which is not ported yet")
+# ---------------------------------------------------------------------------
+# data-parallel encode
+# ---------------------------------------------------------------------------
+
+def _compact_share(bufs: np.ndarray, mesh: Mesh, width_pad: int):
+    """The compact candidate deltas, ``(n_pad, 2, width_pad)`` uint16 on
+    the host, of the staged blocks ``bufs``: each entry takes a
+    contiguous share of the block axis and runs the candidate pass over
+    it batched, on its device and stream; this process computes its own
+    entries' shares, and across processes one all-gather joins them (the
+    entries are listed process by process, so each process's shares are
+    one contiguous run of blocks)."""
+    from .device import to_device
+    from .device.encode import _candidates_compact_device
+
+    per = bufs.shape[0] // mesh.size
+    mine = [(i, e) for i, e in enumerate(mesh.entries)
+            if e.process_index == _process_index()]
+    lo = mine[0][0] * per
+    made = []
+    for i, e in mine:
+        with _on(e):
+            x = to_device(bufs[i * per:(i + 1) * per], e.device)
+            made.append((i, e, _candidates_compact_device(x,
+                                                          n_pad=width_pad)))
+    local = np.empty((len(mine) * per, 2, width_pad), np.uint16)
+    for i, e, d in made:           # every entry has launched: join them
+        _join(e, [d])
+        local[i * per - lo:(i + 1) * per - lo] = d.cpu().numpy()
+    if _process_count() == 1:
+        return local
+    # the collectives move bytes: NCCL has no 16-bit integer type
+    got = _all_gather(torch.from_numpy(local.view(np.uint8)))
+    return got.numpy().view(np.uint16).reshape(bufs.shape[0], 2, width_pad)
+
+
+def compress_sharded(
+    data,
+    mesh: Mesh | None = None,
+    *,
+    block_max_code: int = 7,
+    content_checksum: bool = True,
+    block_checksum: bool = False,
+    content_size: bool = False,
+    block_independence: bool = False,
+) -> bytes:
+    """LZ4 frame compression with block-parallel device match finding
+    (``make_mesh()``, every card, when ``mesh`` is None).
+
+    Encoding is embarrassingly parallel even with linked blocks: block
+    k's 64 KiB history is *input* data, known upfront, so every block's
+    sorted-gram candidate pass (``device/encode.py``) runs concurrently,
+    batched along the block axis, which is sharded across the mesh.
+    Token emission stays on the host per block (byte-granular), and the
+    frame assembles in block order, so the output is bit-identical to
+    ``compress(backend="device")``.
+    """
+    import struct
+
+    from .api import _BLOCK_CODE_SIZE, _frame_descriptor
+    from .constants import MAGIC_MODERN
+    from .native import compress_block_cands
+    from .xxh32 import xxh32
+
+    data = bytes(data)
+    if mesh is None:
+        mesh = make_mesh()
+    block_max = _BLOCK_CODE_SIZE[block_max_code]
+    n_blocks = -(-len(data) // block_max)     # 0 blocks for empty input
+    HCAP = HISTORY_SIZE
+
+    # Stage fixed-shape per-block buffers: [zero pad | history | block].
+    width = HCAP + block_max
+    width_pad = (width + 1023) // 1024 * 1024
+    n_pad = -(-n_blocks // mesh.size) * mesh.size
+    bufs = np.zeros((n_pad, width_pad), np.uint8)
+    first_valid = np.zeros(n_pad, np.int32)
+    spans = []
+    for b in range(n_blocks):
+        pos = b * block_max
+        chunk = data[pos:pos + block_max]
+        hist = b"" if block_independence else data[max(0, pos - HCAP):pos]
+        bufs[b, HCAP - len(hist):HCAP] = np.frombuffer(hist, np.uint8)
+        bufs[b, HCAP:HCAP + len(chunk)] = np.frombuffer(chunk, np.uint8)
+        first_valid[b] = HCAP - len(hist)
+        spans.append((len(hist), len(chunk)))
+
+    if n_blocks:
+        cands = _compact_share(bufs, mesh, width_pad)
+
+    out = bytearray(struct.pack("<I", MAGIC_MODERN))
+    out += _frame_descriptor(
+        len(data) if content_size else None,
+        block_max_code, content_checksum, block_checksum,
+        block_independence,
+    )
+    for b in range(n_blocks):
+        hist_len, src_len = spans[b]
+        fv = int(first_valid[b])
+        # Hand the emitter a buffer that STARTS at the first real byte:
+        # its backward match extension stops at position 0, so it can
+        # never walk into the zero padding before the history (which
+        # would emit back-references reaching before the frame start).
+        # Deltas -> positions rebased to fv; a delta reaching before fv
+        # (into the zero padding) is dropped, and the last 3/7 real
+        # positions are masked exactly like compact_candidates does
+        # (their grams read past the real data), keeping the sharded
+        # frame bit-identical to the sequential device encoder.
+        L = HCAP + src_len - fv
+        d = np.array(cands[b, :, fv:HCAP + src_len], np.int32)
+        d[0, max(0, L - 3):] = 0
+        d[1, max(0, L - 7):] = 0
+        rel = np.arange(L, dtype=np.int32)
+        cand = np.where((d > 0) & (rel[None, :] - d >= 0),
+                        rel[None, :] - d, -1).astype(np.int32)
+        comp = compress_block_cands(
+            bufs[b, fv:], HCAP - fv, src_len, cand, lazy=True
+        )
+        chunk = data[b * block_max: b * block_max + src_len]
+        if comp and len(comp) < src_len:
+            out += struct.pack("<I", len(comp))
+            out += comp
+            blk = comp
+        else:
+            out += struct.pack("<I", src_len | 0x80000000)
+            out += chunk
+            blk = chunk
+        if block_checksum:
+            out += struct.pack("<I", xxh32(blk))
+    out += b"\x00\x00\x00\x00"
+    if content_checksum:
+        out += struct.pack("<I", xxh32(data))
+    return bytes(out)

@@ -82,13 +82,14 @@ def test_kernel_table_names_every_kernel_of_the_port():
                                    "staging_phase", "busy_phase",
                                    "error_phase",
                                    "small_fetch_phase", "sharded_path",
-                                   "sharded_phase"])
+                                   "sharded_phase", "encode_path",
+                                   "encode_phase"])
 def test_main_drives_every_phase(phase):
     smoke = _smoke()
     assert callable(getattr(smoke, phase))
     main_src = (REPO / "chip_smoke.py").read_text().split("def main()")[1]
     assert f"{phase}(" in main_src
-    for path in ("ab", "pipelined", "session", "sharded"):
+    for path in ("ab", "pipelined", "session", "sharded", "encode"):
         assert f'paths["{path}"]' in main_src
 
 
@@ -213,3 +214,24 @@ def test_kernel_times_takes_its_inputs_from_chip_smoke():
     r = subprocess.run([sys.executable, "kernel_times.py", "--help"],
                        cwd=REPO, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and "--turns" in r.stdout
+
+
+def test_candidate_devices_sees_both_passes():
+    """candidate_devices records the device of every tensor the two
+    device passes return, and puts the passes back afterwards."""
+    import numpy as np
+
+    import lz4tpu_torch as lt
+    from lz4tpu_torch import dist
+    from lz4tpu_torch.device import encode as enc
+
+    smoke = _smoke()
+    real = enc._candidates_compact_device
+    text = smoke.frag_text(np, 90_000, 512, 3, 8, 2)
+    with smoke.candidate_devices(enc) as seen:
+        lt.compress(text, backend="device", device="cpu")
+        lt.compress(text, backend="device-emit", device="cpu")
+        dist.compress_sharded(text, dist.make_mesh(2, "cpu"))
+    assert len(seen) == 1 + 2 + 2
+    assert {d.type for d in seen} == {"cpu"}
+    assert enc._candidates_compact_device is real

@@ -459,9 +459,10 @@ def test_default_mesh_is_the_card(monkeypatch):
         lz4tpu_torch.decompress_sharded(data)
 
 
-def test_compress_sharded_waits_for_the_encoder():
-    with pytest.raises(NotImplementedError, match="device encoder"):
-        td.compress_sharded(b"abc" * 100, td.make_mesh(2, "cpu"))
+def test_compress_sharded_encodes():
+    got = td.compress_sharded(b"abc" * 100, td.make_mesh(2, "cpu"))
+    assert got == jd.compress_sharded(b"abc" * 100, jd.make_mesh(2))
+    assert lz4tpu_torch.decompress(got) == b"abc" * 100
 
 
 # ---------------------------------------------------------------------------
@@ -498,13 +499,12 @@ print(f"WORKER{rank}_OK", flush=True)
 '''
 
 
-def test_two_process_decode(tmp_path):
-    """Two processes of four CPU entries each (gloo): both return what
-    one process returns, every tier included (the ordered merge, the
-    tail all-gather, span units across processes), and each holds the
-    segments the assignment gives it.  A hang fails the test."""
+def _two_processes(tmp_path, worker: str) -> None:
+    """Run ``worker`` in two processes joined by gloo (argv: port, rank,
+    output directory); both must print their OK line.  A hang fails the
+    test."""
     script = tmp_path / "worker.py"
-    script.write_text(_WORKER)
+    script.write_text(worker)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -519,7 +519,7 @@ def test_two_process_decode(tmp_path):
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
-        pytest.fail("the two decode processes did not finish in 150 s")
+        pytest.fail("the two processes did not finish in 150 s")
     finally:
         for p in procs:
             p.kill()
@@ -527,8 +527,64 @@ def test_two_process_decode(tmp_path):
     for i, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"worker {i} failed:\n{out[-3000:]}"
         assert f"WORKER{i}_OK" in out
+
+
+def test_two_process_decode(tmp_path):
+    """Two processes of four CPU entries each (gloo): both return what
+    one process returns, every tier included (the ordered merge, the
+    tail all-gather, span units across processes), and each holds the
+    segments the assignment gives it."""
+    _two_processes(tmp_path, _WORKER)
     one = td.make_mesh(8, "cpu")
     for name, (data, blob) in CORPORA.items():
         single = td.decompress_sharded(data, one)
         for rank in (0, 1):
             assert (tmp_path / f"{name}.{rank}").read_bytes() == single, name
+
+
+# 64 KiB blocks of fragment text, random bytes and zeros: 5 blocks, so the
+# eight entries of two processes hold 1 block each and 3 hold padding
+_ENCODE_PAYLOAD = r'''
+def encode_payload():
+    return frag_text(150_000, 21) + rand(100_000, 22) + bytes(70_000)
+'''
+
+_ENCODE_WORKER = CORPORA_SRC + _ENCODE_PAYLOAD + r'''
+import sys
+import torch
+from lz4tpu_torch import dist
+
+port, rank, out_dir = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+dist.initialize_multihost(f"127.0.0.1:{port}", 2, rank, device="cpu")
+mesh = dist.make_mesh(4, "cpu")
+assert mesh.size == 8
+payload = encode_payload()
+for name, kw in (("linked", {}),
+                 ("indep", {"block_independence": True,
+                            "block_checksum": True})):
+    out = dist.compress_sharded(payload, mesh, block_max_code=4, **kw)
+    open(f"{out_dir}/{name}.{rank}", "wb").write(out)
+assert dist.compress_sharded(b"", mesh) == lz4tpu_torch.compress(
+    b"", backend="device", device="cpu")
+torch.distributed.destroy_process_group()
+print(f"WORKER{rank}_OK", flush=True)
+'''
+
+
+def test_two_process_encode(tmp_path):
+    """Two processes of four CPU entries each (gloo) encode as
+    lz4tpu.dist.compress_sharded does on eight devices: each computes
+    its entries' blocks and one all-gather joins the deltas."""
+    _two_processes(tmp_path, _ENCODE_WORKER)
+    ns = {}
+    exec(CORPORA_SRC + _ENCODE_PAYLOAD, ns)
+    payload = ns["encode_payload"]()
+    for name, kw in (("linked", {}),
+                     ("indep", {"block_independence": True,
+                                "block_checksum": True})):
+        want = jd.compress_sharded(payload, jd.make_mesh(8),
+                                   block_max_code=4, **kw)
+        assert want == lz4tpu.compress(payload, backend="device",
+                                       block_max_code=4, **kw)
+        for rank in (0, 1):
+            assert (tmp_path / f"{name}.{rank}").read_bytes() == want, name

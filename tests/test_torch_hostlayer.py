@@ -64,9 +64,10 @@ def test_streaming_compressor_equals_one_shot():
 
 
 @pytest.mark.parametrize("backend", ["device", "device-emit"])
-def test_device_encoder_not_ported(backend):
-    with pytest.raises(NotImplementedError, match="encode"):
-        lz4tpu_torch.compress(b"abc" * 100, backend=backend)
+def test_device_encoder_bytes_equal(backend):
+    assert lz4tpu_torch.compress(b"abc" * 100, backend=backend,
+                                 device="cpu") == lz4tpu.compress(
+        b"abc" * 100, backend=backend)
 
 
 def _frames():

@@ -654,3 +654,52 @@ def test_sharded_decode_on_card_equals_cpu(cuda, entries):
         data = lz4tpu_torch.compress(blob, **kw)
         assert dist.decompress_sharded(data, mesh) == blob
         assert dist.decompress_sharded(data, cpu) == blob
+
+
+# ---------------------------------------------------------------------------
+# the device encoder: torch ops, no kernel of ours; the card's bytes must
+# be the CPU's
+# ---------------------------------------------------------------------------
+
+def _encode_payload() -> bytes:
+    return (_frag_text(150_000, 31) + bytes(70_000) + _src_text(60_000)
+            + np.random.default_rng(32).integers(0, 256, 40_000,
+                                                 dtype=np.uint8).tobytes())
+
+
+@pytest.mark.parametrize("backend", ["device", "device-emit"])
+@pytest.mark.parametrize("kw", [{}, {"block_max_code": 4},
+                                {"block_max_code": 4,
+                                 "block_independence": True,
+                                 "block_checksum": True}])
+def test_encode_on_the_card_equals_the_cpu(cuda, backend, kw):
+    blob = _encode_payload()
+    got = lz4tpu_torch.compress(blob, backend=backend, device="cuda", **kw)
+    assert got == lz4tpu_torch.compress(blob, backend=backend, device="cpu",
+                                        **kw)
+    assert lz4tpu_torch.decompress_to_device(got).cpu().numpy(
+    ).tobytes() == blob
+
+
+def test_encoder_passes_on_the_card_equal_the_cpu(cuda):
+    from lz4tpu_torch.device import encode as enc
+
+    d = np.frombuffer(_encode_payload(), np.uint8)
+    for fn in (enc.compact_candidates, enc.match_candidates):
+        assert np.array_equal(fn(d, device="cuda"), fn(d, device="cpu"))
+    for a, b in zip(enc.emit_inputs(d, device="cuda"),
+                    enc.emit_inputs(d, device="cpu")):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("entries", [1, 4])
+def test_compress_sharded_on_the_card(cuda, entries):
+    from lz4tpu_torch import dist
+
+    blob = _encode_payload()
+    mesh = dist.Mesh(["cuda:0"] * entries)
+    got = dist.compress_sharded(blob, mesh, block_max_code=4)
+    assert got == dist.compress_sharded(blob, dist.make_mesh(entries, "cpu"),
+                                        block_max_code=4)
+    assert got == lz4tpu_torch.compress(blob, backend="device",
+                                        device="cpu", block_max_code=4)

@@ -263,10 +263,13 @@ def test_cuda_without_cuda_raises(monkeypatch):
         lz4tpu_torch.decompress_to_device(lz4tpu.compress(b"abc"))
 
 
-def test_unported_pieces_raise(monkeypatch):
-    """What is still to port raises NotImplementedError naming the
-    missing piece; the pipelined decode, the session and the sharded
-    decode, ported since, decode."""
+def test_ported_pieces_decode_and_encode(monkeypatch):
+    """The pieces once left to port work: the pipelined decode, the
+    session and the sharded decode decode, and the device encoder
+    (``compress(backend=)``, ``dist.compress_sharded``) writes
+    lz4tpu's bytes."""
+    import lz4tpu.dist
+
     import lz4tpu_torch.dist
 
     data = lz4tpu.compress(b"abc" * 100)
@@ -280,13 +283,14 @@ def test_unported_pieces_raise(monkeypatch):
         assert s.submit(data).result() == b"abc" * 100
     assert lz4tpu_torch.decompress_sharded(
         data, device="cpu") == b"abc" * 100
-    for fn, what in ((lz4tpu_torch.compress_device, "encode"),
-                     (lz4tpu_torch.dist.compress_sharded, "encode")):
-        with pytest.raises(NotImplementedError, match=what):
-            fn(data)
+    assert lz4tpu_torch.dist.compress_sharded(
+        b"abc" * 100, lz4tpu_torch.dist.make_mesh(device="cpu")) == \
+        lz4tpu.dist.compress_sharded(b"abc" * 100)
     for backend in ("device", "device-emit"):
-        with pytest.raises(NotImplementedError):
-            lz4tpu_torch.compress(b"abc" * 100, backend=backend)
+        assert lz4tpu_torch.compress(
+            b"abc" * 100, backend=backend, device="cpu") == \
+            lz4tpu.compress(b"abc" * 100, backend=backend)
+    assert not hasattr(lz4tpu_torch, "compress_device")
 
 
 def test_resolver_chains_raise(monkeypatch):

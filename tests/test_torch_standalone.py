@@ -1,9 +1,10 @@
 """lz4tpu_torch stands alone: with ``import jax`` and ``import lz4tpu``
 both made to fail, the package imports, compresses, and decodes one
 input per engine on the CPU, through the pipelined decode, the session
-and the A/B harness's plain side too; no file of it (nor ``chip_smoke.py``)
-imports either or reaches into ``lz4tpu/`` by path; and its native
-engine is built from its own C++ source."""
+and the A/B harness's plain side too, encodes on the device path
+(``device="cpu"``) and runs its console tools; no file of it (nor
+``chip_smoke.py``) imports either or reaches into ``lz4tpu/`` by path;
+and its native engine is built from its own C++ source."""
 
 import pathlib
 import re
@@ -66,15 +67,48 @@ mesh = dist.make_mesh(4, "cpu")
 for blob in (text, src, bytes(300000), text * 3):
     assert lz4tpu_torch.decompress_sharded(
         lz4tpu_torch.compress(blob), mesh) == blob
+# the device encoder: both backends and the sharded encoder
+for backend in ("device", "device-emit"):
+    frame = lz4tpu_torch.compress(text, backend=backend, device="cpu",
+                                  block_max_code=4)
+    assert lz4tpu_torch.decompress(frame) == text, backend
+assert dist.compress_sharded(text, mesh, block_max_code=4) == \
+    lz4tpu_torch.compress(text, backend="device", device="cpu",
+                          block_max_code=4)
+# the console tools, in process
+import io, os
+from lz4tpu_torch import cli
+os.environ[cli.DEVICE_ENV] = "cpu"
+class _Out:
+    def __init__(self):
+        self.buffer = io.BytesIO()
+    def write(self, s):
+        self.buffer.write(s.encode())
+    def flush(self):
+        pass
+class _In:
+    def __init__(self, b):
+        self.buffer = io.BytesIO(b)
+sys.stdin, sys.stdout, sys.stderr = _In(data), _Out(), io.StringIO()
+assert cli.main(["unlz4"]) == 0
+got = sys.stdout.buffer.getvalue()
+open(os.path.join(sys.argv[1], "t.bin"), "wb").write(text[:9000])
+sys.stdout = _Out()
+assert cli.main(["lz4-bench", "--encode", "--backend", "device",
+                 "--reps", "1", os.path.join(sys.argv[1], "t.bin")]) == 0
+sys.stdin, sys.stdout, sys.stderr = sys.__stdin__, sys.__stdout__, \
+    sys.__stderr__
+assert got == small
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 assert "jax" not in loaded and "lz4tpu" not in loaded
 print("standalone OK")
 """
 
 
-def test_decodes_every_engine_with_jax_blocked():
-    r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
-                       capture_output=True, text=True, timeout=300)
+def test_decodes_every_engine_with_jax_blocked(tmp_path):
+    r = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
+                       cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "standalone OK" in r.stdout
 
@@ -85,7 +119,8 @@ def _port_files():
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"lz4tpu_torch/serve.py", "lz4tpu_torch/exp/ab.py",
             "lz4tpu_torch/exp/__init__.py", "lz4tpu_torch/spans.py",
-            "lz4tpu_torch/dist.py", "chip_smoke.py"} <= names
+            "lz4tpu_torch/dist.py", "lz4tpu_torch/device/encode.py",
+            "lz4tpu_torch/cli.py", "chip_smoke.py"} <= names
     return files
 
 
@@ -120,13 +155,15 @@ def test_no_file_reaches_into_lz4tpu_by_path():
 
 
 def test_sharded_decode_modules_import_only_torch_numpy_and_the_port():
-    """spans.py and dist.py (a file: ``dist/`` is git-ignored) import
-    the standard library, numpy, torch and the port's own modules."""
+    """spans.py, dist.py (a file: ``dist/`` is git-ignored), the device
+    encoder and the CLI import the standard library, numpy, torch and
+    the port's own modules."""
     import ast
 
-    allowed = {"__future__", "concurrent", "contextlib", "dataclasses",
-               "numpy", "torch"}
-    for name in ("spans.py", "dist.py"):
+    allowed = {"__future__", "argparse", "concurrent", "contextlib",
+               "dataclasses", "numpy", "os", "struct", "sys", "time",
+               "torch"}
+    for name in ("spans.py", "dist.py", "device/encode.py", "cli.py"):
         path = PKG / name
         assert path.is_file()
         for node in ast.walk(ast.parse(path.read_text())):
