@@ -637,28 +637,42 @@ def kernel_phase(torch, np, lt, tpl, corp, words, dev, name_card, probe):
           f"({pack.n_sub} substeps), zero and seeded ring, one launch and "
           "parts of 37 substeps carrying the ring", flush=True)
 
-    # H7: every exact variant against plain on 200 KB with a seeded ring
-    # (the ring wraps three times), then on src1m against the original
-    # bytes; sub 2048 also against H3's rows
+    # H7: every exact variant (the pointer-jumping decode, its graph, the
+    # serial loop and its prefetch) at every substep size against plain
+    # from a seeded ring, rows and ring_out: on 200 KB (the ring wraps
+    # three times), on src1m, and on made-up codes whose first substeps
+    # read the ring; then on src1m against the original bytes, and at
+    # sub 2048 against H3's rows.  Timed on src1m, with the peak device
+    # memory of a jump decode
     small = blob[:200_000]
     small_data = lt.compress(small)
-    ring_in = torch.from_numpy(np.random.default_rng(31).integers(
-        0, 256, 65536, dtype=np.uint8)).to(dev)
-    err = 0
+    ring_in = to_device(np.random.default_rng(31).integers(
+        0, 256, 65536, dtype=np.uint8), dev)
+    err, by_sub = 0, {}
     for sub in ab.SUBS:
-        code_s = to_device(ab.pack_host(small_data, sub)[0], dev)
-        rows_p, ring_p = ab.route_variant_plain(code_s, sub, ring_in)
-        code_f = to_device(ab.pack_host(data, sub)[0], dev)
+        cases = {"200 KB": to_device(ab.pack_host(small_data, sub)[0], dev),
+                 "src1m": to_device(ab.pack_host(data, sub)[0], dev),
+                 "made-up codes": to_device(edge.ab_codes(24, sub), dev)}
+        plain = {name: ab.route_variant_plain(c, sub, ring_in)
+                 for name, c in cases.items()}
+        need(plain["200 KB"][0][:len(small)].cpu().numpy().tobytes()
+             == small, f"route_variant_plain sub={sub}: 200 KB differ from "
+                       "the original")
+        code_f = cases["src1m"]
+        n_sub = code_f.shape[0]
+        by_sub[sub] = {"live_passes": ab.live_passes(code_f, sub)}
         for variant in ab.EXACT:
-            rows_k, ring_k = ab.route_variant(code_s, sub, ring_in, variant)
-            torch.cuda.synchronize()
-            need(torch.equal(ring_k, ring_p),
-                 f"mxu2_route_ab sub={sub} {variant}: ring_out differs")
-            err = max(err, max_abs_err(torch, rows_k, rows_p))
-            need(rows_k[:len(small)].cpu().numpy().tobytes() == small,
-                 f"mxu2_route_ab sub={sub} {variant}: 200 KB differ from "
-                 "the original")
-            full, _ring = ab.route_variant(code_f, sub, None, variant)
+            for name, c in cases.items():
+                rows_k, ring_k = ab.route_variant(c, sub, ring_in, variant)
+                torch.cuda.synchronize()
+                need(torch.equal(ring_k, plain[name][1]),
+                     f"mxu2_route_ab sub={sub} {variant}: {name}: ring_out "
+                     "differs from plain")
+                e = max_abs_err(torch, rows_k, plain[name][0])
+                need(e <= TOL, f"mxu2_route_ab sub={sub} {variant}: {name}:"
+                               f" rows differ from plain (max abs err {e})")
+                err = max(err, e)
+            full, ring_f = ab.route_variant(code_f, sub, None, variant)
             torch.cuda.synchronize()
             need(full[:len(blob)].cpu().numpy().tobytes() == blob,
                  f"mxu2_route_ab sub={sub} {variant}: src1m differs from "
@@ -667,23 +681,34 @@ def kernel_phase(torch, np, lt, tpl, corp, words, dev, name_card, probe):
                 need(torch.equal(full, out_k),
                      f"mxu2_route_ab sub=2048 {variant} differs from "
                      "mxu2_route")
-            ms = cuda_ms(torch, lambda: ab.route_variant(
+            by_sub[sub][variant] = cuda_ms(torch, lambda: ab.route_variant(
                 code_f, sub, None, variant), 20)
             if (sub, variant) == (mx.SUB, "exact"):
-                ab_ms, ab_code, ab_out = ms, code_f, full
+                ab_code, ab_out, ab_ring = code_f, full, ring_f
                 ab_plain_ms = cuda_ms(
-                    torch, lambda: ab.route_variant_plain(
-                        code_s, sub, ring_in), 1)
-                ab_plain_shape = (f"200 KB of src1m, {code_s.shape[0]} "
-                                  f"substeps of {sub}")
-            else:
-                print(f"[kernel] mxu2_route_ab sub={sub} {variant}: "
-                      f"{ms:.4f} ms on src1m, {code_f.shape[0]} substeps "
-                      f"[{name_card}]", flush=True)
-    record("mxu2_route_ab", err, ab_ms, ab_plain_ms,
-           1e3 * nbytes(ab_code, ab_out, ring_in) / HBM_BYTES_PER_S,
+                    torch, lambda: ab.route_variant_plain(code_f, sub), 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ab.route_variant(code_f, sub)
+        torch.cuda.synchronize()
+        by_sub[sub]["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        r = by_sub[sub]
+        print(f"[kernel] mxu2_route_ab sub={sub}: every exact variant equal "
+              f"to plain on 200 KB, src1m and made-up codes from a seeded "
+              f"ring; src1m, {n_sub} substeps: exact {r['exact']:.4f} "
+              f"ms ({mx.passes_for(n_sub)} passes, {r['live_passes']} live), "
+              f"graph "
+              f"{r['graph']:.4f}, serial {r['serial']:.4f}, prefetch "
+              f"{r['prefetch']:.4f}; peak device memory of an exact call "
+              f"{r['peak_bytes']} B beside a code array of "
+              f"{code_f.numel() * 4} B [{name_card}]", flush=True)
+        del cases, plain, code_f, full
+    record("mxu2_route_ab", err, by_sub[mx.SUB]["exact"], ab_plain_ms,
+           1e3 * nbytes(ab_code, ab_out, ab_ring) / HBM_BYTES_PER_S,
            "bytes", f"src1m, {ab_code.shape[0]} substeps of {mx.SUB}, "
-           "variant exact", plain_shape=ab_plain_shape)
+           "variant exact")
+    rows["mxu2_route_ab"]["by_sub"] = by_sub
 
     # H2 on z9m (the block-fill plan's 18 blocks of 512 KiB) and on 256
     # blocks; the library call is one copy of an expanded view
@@ -1068,7 +1093,8 @@ def decompress_device_path(torch, np, lt, tpl, _kernels, corp, dev,
 
 def ab_path(torch, lt, _kernels, corp, name_card):
     """The A/B harness of the mxu2 route variants (kernel H7), short
-    setting: every exact variant and every phase ablation on src1m."""
+    setting: the pointer-jumping decode, its graph and the serial loop
+    at every substep size, and every ablation, on src1m."""
     from lz4tpu_torch.exp import ab
 
     _kernels.reset_launches()
@@ -1079,6 +1105,8 @@ def ab_path(torch, lt, _kernels, corp, name_card):
     need(len(results) == len(ab.DEFAULT_SPECS)
          and {r["sub"] for r in results if r["exact"]} == set(ab.SUBS),
          "the harness did not time every exact substep size")
+    need({r["variant"] for r in results} == set(ab.VARIANTS),
+         "the harness did not time every variant")
     for r in results:
         need(r["ms"] > 0, f"[ab] {r['name']}: no time measured")
         print(f"[ab] {ab.format_row(r)} (chains of {lo} and {hi}, median "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times of the redesigned kernels (``segment_decode``, ``fused_route``,
-``fused_expand``, ``mxu2_route``, ``block_fill``) in two or more
-checkouts, in turns on one card.
+``fused_expand``, ``mxu2_route``, ``mxu2_route_ab``, ``block_fill``) in
+two or more checkouts, in turns on one card.
 
 Run from the root of a checkout on a machine with a GPU::
 
@@ -25,6 +25,12 @@ on frag1m's one chain and on frag32m-indep's 8 chains in one launch;
 names (a 64-substep pipelined chunk, frag1m's 556 substeps, frag32m's
 first part of 8192); ``mxu2_route`` (median of 20, of 5 on words32m) on
 ``chip_smoke.route_shapes``: src1m and words32m, each one dense chain;
+``mxu2_route_ab`` (median of 20): the harness kernel H7's ``exact``
+variant on src1m at every substep size (the serial loop in a tree
+older than the pointer-jumping H7), and, where the tree's H7 jumps
+pointers, ``exact`` and ``trim`` (only the passes one decode found
+work in, whose count is printed too) on words32m at every substep
+size (median of 5);
 ``block_fill`` (median of 50) on z9m's 18 blocks of 512 KiB and on 256
 blocks (128 MiB) of seeded values with high bits set (and, as the floor
 under such a time, an empty launch), beside one
@@ -49,7 +55,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 
 KERNELS = ("segment_decode", "fused_route", "fused_expand", "mxu2_route",
-           "block_fill", "engines")
+           "mxu2_route_ab", "block_fill", "engines")
 
 
 def measure(tree: pathlib.Path, kernels=KERNELS) -> dict:
@@ -121,9 +127,10 @@ def measure(tree: pathlib.Path, kernels=KERNELS) -> dict:
 
     # the wrapper is private in a tree whose H3 is pointer jumping
     route = getattr(mx, "_route", None) or mx.route
-    words = cs.words32m(np, lt) if "mxu2_route" in kernels else None
+    words = (cs.words32m(np, lt) if {"mxu2_route", "mxu2_route_ab"}
+             & set(kernels) else None)
     for name, pack in (cs.route_shapes(np, lt, tpl, corp, words)
-                       if words else ()):
+                       if "mxu2_route" in kernels else ()):
         code, scal = to_device(pack.code, dev), to_device(pack.scal, dev)
         segs = segments_tensor(part_segments(pack.out_spans, 0, pack.n_sub,
                                              False), dev)
@@ -137,6 +144,39 @@ def measure(tree: pathlib.Path, kernels=KERNELS) -> dict:
             torch, lambda: route(code, scal, segs),
             5 if name.startswith("words") else 20)
         del code
+
+    if "mxu2_route_ab" in kernels:
+        from lz4tpu_torch.exp import ab
+
+        data, blob = corp["src1m"][0], corp["src1m"][1]
+        for sub in ab.SUBS:
+            code = to_device(ab.pack_host(data, sub)[0], dev)
+            rows, _ring = ab.route_variant(code, sub)
+            if rows[:len(blob)].cpu().numpy().tobytes() != blob:
+                raise SystemExit(f"mxu2_route_ab sub={sub}: src1m differs "
+                                 "from the original")
+            del rows
+            out[f"mxu2_route_ab exact src1m, sub {sub} ({code.shape[0]} "
+                "substeps)"] = cs.cuda_ms(
+                    torch, lambda: ab.route_variant(code, sub), 20)
+        # words32m, a text chain at its full part size: how many passes
+        # find work, and what a larger substep saves there
+        for sub in (ab.SUBS if hasattr(ab, "live_passes") else ()):
+            code = to_device(ab.pack_host(words[0], sub)[0], dev)
+            rows, _ring = ab.route_variant(code, sub)
+            if rows[:len(words[1])].cpu().numpy().tobytes() != words[1]:
+                raise SystemExit(f"mxu2_route_ab sub={sub}: words32m "
+                                 "differs from the original")
+            del rows
+            n, live = code.shape[0], ab.live_passes(code, sub)
+            tag = f"words32m, sub {sub} ({n} substeps"
+            out[f"mxu2_route_ab exact {tag}, {mx.passes_for(n)} passes)"] = \
+                cs.cuda_ms(torch, lambda: ab.route_variant(code, sub), 5)
+            out[f"mxu2_route_ab trim {tag}, the live passes)"] = cs.cuda_ms(
+                torch, lambda: ab.route_variant(code, sub, None, "trim",
+                                                live), 5)
+            out[f"passes live in one exact decode, {tag})"] = live
+            del code
 
     if "block_fill" in kernels:
         from lz4tpu_torch import _kernels
@@ -187,11 +227,15 @@ def turns(trees: list, kernels: str) -> int:
         runs.append((label, json.loads(r.stdout.strip().splitlines()[-1])))
     card = runs[0][1]["card"]
     for key in runs[0][1]:
-        if key in ("tree", "card"):
+        # a key an older tree does not measure is left out
+        if key in ("tree", "card") or any(key not in r for _l, r in runs):
             continue
+        count = key.startswith("passes")
         print(f"[turns] {key}: " + ", ".join(
-            f"{label} {res[key]:.4f}" for label, res in runs)
-            + f" ms ({', '.join(labels)}) [{card}]", flush=True)
+            f"{label} {res[key]}" if count else f"{label} {res[key]:.4f}"
+            for label, res in runs)
+            + f"{'' if count else ' ms'} ({', '.join(labels)}) [{card}]",
+            flush=True)
     return 0
 
 

@@ -67,6 +67,8 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Decompressor",
     "Format",
@@ -96,4 +98,5 @@ __all__ = [
     "TooLittleMemory",
     "hex8",
     "hex32",
+    "__version__",
 ]

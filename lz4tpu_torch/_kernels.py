@@ -51,7 +51,7 @@ _SIGNATURES = {
     "lz4t_xxh32_stream": [_P, _I64, _P, _P, _P],
     "lz4t_xxh32_blocks": [_P, _P, _P, _I32, _P, _P],
     "lz4t_segment_decode": [_P, _P, _I64, _P, _I32, _P, _I32, _P],
-    "lz4t_mxu2_route_ab": [_P, _I32, _I32, _I32, _P, _P, _P, _P],
+    "lz4t_mxu2_route_ab": [_P, _I32, _I32, _I32, _P, _P, _P, _I32, _P, _P],
 }
 
 

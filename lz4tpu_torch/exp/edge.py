@@ -1,5 +1,6 @@
-"""Hand-made inputs at the edges of kernel H6 (``segment_decode``) and of
-kernel H1's route, each with a numpy reference of its own.
+"""Hand-made inputs at the edges of kernel H6 (``segment_decode``), of
+kernel H1's route, of H3's passes and of H7's ring, each with a
+reference of its own (numpy, or the kernel's plain version).
 
 The CPU tests run them through the plain versions, the tests on the
 card and ``chip_smoke.py`` through the kernels: the same tables, the
@@ -243,3 +244,20 @@ def deep_chain(n_sub: int, seed: int = 3):
     code[1:] = np.where(fresh, code[1:], (1 << 16) | prev)
     scal = ((np.arange(n_sub) * (SUB // 256)) & 255).astype(np.int32)
     return code, scal.reshape(-1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the A/B harness's route (kernel H7)
+# ---------------------------------------------------------------------------
+
+def ab_codes(n_sub: int, sub: int, seed: int = 5) -> np.ndarray:
+    """Made-up H7 codes ``(n_sub, sub)`` int32 that no packer makes: in
+    every substep, the first included, three codes in four are ring codes
+    at any offset and the rest known bytes.  So the first substeps read
+    ``ring_in`` (or zeros) wherever the stream has not yet written, every
+    later one reads bytes written at every distance, and ``ring_out``
+    keeps bytes of ``ring_in`` when the stream is shorter than the ring."""
+    rng = np.random.default_rng(seed)
+    known = rng.integers(0, 256, (n_sub, sub)).astype(np.int32) << 17
+    ring = rng.integers(0, RING, (n_sub, sub)).astype(np.int32) | 1 << 16
+    return np.where(rng.random((n_sub, sub)) < 0.75, ring, known)

@@ -172,6 +172,11 @@ def test_streaming_decompressor_equal(chunk):
     assert outs[0][0] == PAYLOAD[:50_000]
 
 
+def test_version_equals_the_jax_package():
+    assert lz4tpu_torch.__version__ == lz4tpu.__version__
+    assert "__version__" in lz4tpu_torch.__all__
+
+
 def test_min_buffer_size_and_constants_equal():
     for res in ("FOR_ALL", "FOR_MODERN", "FOR_LEGACY"):
         assert (lz4tpu_torch.min_buffer_size(getattr(lz4tpu_torch, res))

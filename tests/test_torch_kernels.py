@@ -254,11 +254,12 @@ def test_decode_split_on_card(cuda):
     assert torch.equal(ring_k.cpu(), ring_p)
 
 
-@pytest.mark.parametrize("variant", ["exact", "prefetch"])
+@pytest.mark.parametrize("variant", ["exact", "prefetch", "serial",
+                                     "graph"])
 @pytest.mark.parametrize("sub", [2048, 3072, 4096, 6144, 12288])
 def test_mxu2_route_ab_kernel(cuda, sub, variant):
-    """Kernel H7 against its plain version for every exact substep
-    size: 200 KB wrap the ring three times, from a seeded ring."""
+    """Kernel H7 against its plain version for every exact variant and
+    substep size: 200 KB wrap the ring three times, from a seeded ring."""
     from lz4tpu_torch.exp import ab
 
     blob = _src_text(200_000)
@@ -277,6 +278,60 @@ def test_mxu2_route_ab_kernel(cuda, sub, variant):
     assert rows_p.numpy()[:n_out].tobytes() == blob
 
 
+@pytest.mark.parametrize("sub", [2048, 3072, 4096, 6144, 12288])
+def test_mxu2_route_ab_kernel_reads_the_ring(cuda, sub):
+    """Every exact variant of H7 on made-up codes whose first substeps
+    read the seeded ring (and a zero one), against the plain version;
+    the pointer-jumping decode also keeps a short stream's ring_in bytes
+    in ring_out, and its graph replays with new pointers each call."""
+    from lz4tpu_torch.exp import ab
+
+    ring_in = torch.from_numpy(np.random.default_rng(sub + 1).integers(
+        0, 256, 65536, dtype=np.uint8))
+    for n_sub in (3, 24):
+        code = torch.from_numpy(edge.ab_codes(n_sub, sub))
+        for seed in (None, ring_in):
+            rows_p, ring_p = ab.route_variant_plain(code, sub, seed)
+            for variant in ab.EXACT:
+                for _ in range(2):
+                    rows_k, ring_k = ab.route_variant(
+                        code.to(cuda), sub,
+                        None if seed is None else seed.to(cuda), variant)
+                    torch.cuda.synchronize()
+                    assert torch.equal(rows_k.cpu(), rows_p), variant
+                    assert torch.equal(ring_k.cpu(), ring_p), variant
+
+
+def test_mxu2_route_ab_graph_cache_evicts(cuda):
+    """More chain lengths than H7 keeps graphs for at one substep size:
+    each graph decode equals the plain version, the first length too
+    when its graph has been freed and is built again."""
+    from lz4tpu_torch.exp import ab
+
+    for n_sub in (*range(1, 13), 1, 2):
+        code = torch.from_numpy(edge.ab_codes(n_sub, 3072, seed=n_sub))
+        rows_p, ring_p = ab.route_variant_plain(code, 3072)
+        rows_k, ring_k = ab.route_variant(code.to(cuda), 3072, None, "graph")
+        torch.cuda.synchronize()
+        assert torch.equal(rows_k.cpu(), rows_p), n_sub
+        assert torch.equal(ring_k.cpu(), ring_p), n_sub
+
+
+def test_mxu2_route_ab_live_passes(cuda):
+    """The passes one pointer-jumping decode found work in are at most
+    passes_for(n_sub), and trimmed to them the decode still launches."""
+    from lz4tpu_torch.exp import ab
+
+    code, _scal, n_out = ab.pack_host(
+        lz4tpu_torch.compress(_src_text(300_000)), 2048)
+    code_t = torch.from_numpy(code).to(cuda)
+    live = ab.live_passes(code_t, 2048)
+    assert 0 < live <= tmx.passes_for(code.shape[0])
+    rows, _ring = ab.route_variant(code_t, 2048, None, "trim", live)
+    torch.cuda.synchronize()
+    assert rows.shape == (code.size,)
+
+
 def test_mxu2_route_ab_ablations_launch(cuda):
     """The timing-only variants launch and leave the ring shape alone
     (their bytes are not the decode and are not compared)."""
@@ -286,7 +341,8 @@ def test_mxu2_route_ab_ablations_launch(cuda):
         lz4tpu_torch.compress(_src_text(100_000)), 4096)
     code_t = torch.from_numpy(code).to(cuda)
     for variant in ab.VARIANTS:
-        rows, ring = ab.route_variant(code_t, 4096, None, variant)
+        passes = 2 if variant in ab.TRIMMED else None
+        rows, ring = ab.route_variant(code_t, 4096, None, variant, passes)
         torch.cuda.synchronize()
         assert rows.shape == (code.size,) and ring.shape == (65536,)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -299,9 +355,13 @@ def test_harness_runs_on_card(cuda):
 
     blob = _src_text(150_000)
     rows = ab.run(lz4tpu_torch.compress(blob), blob,
-                  ("sub2k", "p3sf6k", "noring@12288"), lo=2, hi=6, rounds=3)
-    assert [r["sub"] for r in rows] == [2048, 6144, 12288]
+                  ("sub2k", "p3sf6k", "noring@12288", "graph3k", "trim12k"),
+                  lo=2, hi=6, rounds=3)
+    assert [r["sub"] for r in rows] == [2048, 6144, 12288, 3072, 12288]
     assert all(r["ms"] > 0 for r in rows)
+    assert rows[2]["passes"] is None
+    assert rows[3]["passes"] == tmx.passes_for(rows[3]["n_sub"])
+    assert rows[4]["passes"] == rows[4]["live_passes"]
 
 
 def test_pipelined_on_card(cuda):

@@ -209,9 +209,8 @@ def test_exports_match_the_jax_package():
 
     ours = set(lz4tpu_torch.__all__)
     for name in lz4tpu.__all__:
-        if name != "__version__":
-            assert name in ours, name
-            assert hasattr(lz4tpu_torch, name), name
+        assert name in ours, name
+        assert hasattr(lz4tpu_torch, name), name
     for name in ("decompress_device", "decompress_into", "min_buffer_size",
                  "hex8", "hex32"):
         assert name in ours
