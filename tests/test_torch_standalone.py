@@ -3,7 +3,8 @@ both made to fail, the package imports, compresses, and decodes one
 input per engine on the CPU, through the pipelined decode, the session
 and the A/B harness's plain side too, encodes on the device path
 (``device="cpu"``) and runs its console tools; no file of it (nor
-``chip_smoke.py``) imports either or reaches into ``lz4tpu/`` by path;
+``chip_smoke.py``, nor the bench ``bench_torch/``) imports either or
+reaches into ``lz4tpu/`` by path;
 and its native engine is built from its own C++ source."""
 
 import pathlib
@@ -114,13 +115,16 @@ def test_decodes_every_engine_with_jax_blocked(tmp_path):
 
 
 def _port_files():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 21
+    files = (sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "bench_torch").glob("*.py")))
+    assert len(files) >= 26
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"lz4tpu_torch/serve.py", "lz4tpu_torch/exp/ab.py",
             "lz4tpu_torch/exp/__init__.py", "lz4tpu_torch/spans.py",
             "lz4tpu_torch/dist.py", "lz4tpu_torch/device/encode.py",
-            "lz4tpu_torch/cli.py", "chip_smoke.py"} <= names
+            "lz4tpu_torch/cli.py", "chip_smoke.py",
+            "bench_torch/__main__.py", "bench_torch/corpora.py",
+            "bench_torch/run.py", "bench_torch/spread.py"} <= names
     return files
 
 
