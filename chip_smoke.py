@@ -42,6 +42,12 @@ g++:  ``python3 chip_smoke.py``.  It
    host emitters, peak device memory and end-to-end encode rates;
 5. checks that corrupted frames raise what
    ``lz4tpu_torch.decompress_host`` raises, under both verify modes;
+   then soaks: ``SOAK_ROUNDS`` seeded rounds of
+   ``lz4tpu_torch.exp.soak`` from ``SOAK_SEED`` (random payloads and
+   frame options, a flipped byte and a truncation each, through every
+   device entry point against the host engine, no host fallback on a
+   frame the host decodes), requiring every decode kernel launched and
+   every engine planned;
 6. times the device content checksum against a fetch and the native
    host hash, size by size (why the port has no small-fetch branch);
 7. prints one JSON line with every kernel, the card line, and last
@@ -141,6 +147,13 @@ extern "C" int smem_probe_launch(long long n_rounds, void* state,
   return int(cudaGetLastError());
 }
 """
+
+
+# The soak phase's rounds: seeds SOAK_SEED .. SOAK_SEED + SOAK_ROUNDS - 1.
+# Fixed before the phase first ran on the card; a fault a seed finds is
+# repaired, never stepped around by another seed or count.
+SOAK_SEED = 7_000_000
+SOAK_ROUNDS = 160
 
 
 class SmokeFailure(Exception):
@@ -1299,18 +1312,19 @@ def session_path(torch, lt, tpl, _kernels, corp, dev, name_card):
     with lt.DecodeSession(max_inflight=4) as s:
         need(s.device.type == "cuda", "the session did not take the card")
         t0 = time.perf_counter()
-        same(windowed(s, datas, lambda t: t.result()), "result()")
-        same(windowed(s, datas, lambda t: t.result_on_device(
-            verify="device")), "result_on_device(verify='device')")
         deferred = []
 
         def none_then_bytes(t):
             deferred.append(t.result_on_device(verify="none"))
             return t.result()
 
-        same(windowed(s, datas, none_then_bytes),
-             "result() after result_on_device(verify='none')")
-        same(deferred, "result_on_device(verify='none')")
+        with host_decode_refused():
+            same(windowed(s, datas, lambda t: t.result()), "result()")
+            same(windowed(s, datas, lambda t: t.result_on_device(
+                verify="device")), "result_on_device(verify='device')")
+            same(windowed(s, datas, none_then_bytes),
+                 "result() after result_on_device(verify='none')")
+            same(deferred, "result_on_device(verify='none')")
         del deferred
         torch.cuda.synchronize()
         print(f"[session] {len(SERVED)} corpora x 3 rounds (result, "
@@ -1574,6 +1588,31 @@ def error_phase(lt, corp):
               flush=True)
 
 
+def soak_phase(_kernels, name_card):
+    """The soak (``lz4tpu_torch.exp.soak``) on its fixed seeds: any
+    difference from the host engine, a sound frame served by the host
+    fallback, or a decode kernel or engine the rounds never reached
+    fails the smoke.  Returns the launches of its rounds."""
+    from lz4tpu_torch.exp import soak
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        cover = soak.soak(SOAK_SEED, "cuda", rounds=SOAK_ROUNDS)
+        cover.require("cuda")
+    except soak.SoakFailure as e:
+        raise SmokeFailure(f"soak: {e}") from e
+    secs = time.perf_counter() - t0
+    counts = dict(_kernels.LAUNCHES)
+    need(counts["mxu2_route_ab"] == 0, "the soak launched mxu2_route_ab")
+    print(f"[soak] seeds {SOAK_SEED}..{SOAK_SEED + SOAK_ROUNDS - 1}: "
+          f"{cover.rounds} rounds in {secs:.2f} s, every device path "
+          f"equal to the host engine [{name_card}]", flush=True)
+    for line in cover.lines():
+        print(line, flush=True)
+    return counts
+
+
 def small_fetch_phase(torch, np, corp, dev, name_card):
     """Device content checksum against fetch + native hash, by size."""
     from lz4tpu_torch import native
@@ -1627,22 +1666,18 @@ SHARDED_FOUR = {"z9m": ("resolver", {}), "b3.5m": ("resolver", {}),
 
 @contextlib.contextmanager
 def host_decode_refused():
-    """Within: the decoders' fallback to ``decompress_host`` (taken on
-    any Lz4Error, a wrong device result under a content checksum among
-    them) fails the smoke, so every byte of a sound frame comes from the
+    """Within: a call of the host engine from inside a device entry
+    point (``pipeline._host_fallback``, taken on any Lz4Error, a wrong
+    device result under a content checksum among them) fails the smoke
+    when the block ends, so every byte of a sound frame comes from the
     card."""
-    from lz4tpu_torch import api
+    from lz4tpu_torch import pipeline
 
-    real = api.decompress_host
-
-    def refuse(data, reservation=None):
-        raise SmokeFailure("a sound frame fell back to decompress_host")
-
-    api.decompress_host = refuse
-    try:
-        yield
-    finally:
-        api.decompress_host = real
+    before = pipeline.HOST_FALLBACKS
+    yield
+    n = pipeline.HOST_FALLBACKS - before
+    need(n == 0, f"a sound frame fell back to the host engine ({n} "
+                 "call(s) of pipeline._host_fallback)")
 
 
 def sharded_tier(np, lt, tpl, dist, data, mesh):
@@ -2190,10 +2225,14 @@ def main() -> int:
     busy_phase(torch, lt, corp, card)
     sharded_phase(torch, lt, corp, card)
     encode_phase(torch, np, lt, corp, dev, card)
-    launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
-    for name, n in launches.items():
-        need(n > 0, f"kernel {name} was never launched by a path")
+    for name in KERNELS:
+        need(sum(p[name] for p in paths.values()) > 0,
+             f"kernel {name} was never launched by a path")
     error_phase(lt, corp)
+    # the soak launches every decode kernel: it stays out of the check
+    # above, so that a fixed path that stops launching its kernel fails
+    paths["soak"] = soak_phase(_kernels, card)
+    launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     small_fetch_phase(torch, np, corp, dev, card)
 
     print(json.dumps({"kernels": [

@@ -257,8 +257,14 @@ def _local_resolve(out_start, lit_len, lit_src, match_off, produces,
     local = pos - os_
     mstart = os_ + ll
     lit_ptr = -(ls + local) - 1
+    # A match byte equals every byte a multiple of mo before it, back to
+    # mstart - mo: point at the latest one before max(mstart, lo).  A
+    # match that began before the span then escapes at most mo (< 64 KiB)
+    # before it, into the tails the exchange carries; folding back to
+    # mstart - mo escapes as far as the match is long, past them.
+    base = mstart.clamp(min=lo) - mo
     # lax.rem truncates toward zero, as fmod does (`%` would floor)
-    match_ptr = mstart - mo + torch.fmod(pos - mstart, mo)
+    match_ptr = base + torch.fmod(pos - base, mo)
     src = torch.where(local < ll, lit_ptr, match_ptr)
     src = torch.where(pos < n_real, src, torch.full_like(src, -1))
 
@@ -745,16 +751,16 @@ def decompress_sharded(data, mesh: Mesh | None = None, reservation=None,
     try:
         return _decompress_sharded_batch(data, mesh, reservation, device)
     except Lz4Error:
-        from .api import decompress_host
+        from .pipeline import _host_fallback
 
-        return decompress_host(data, reservation)
+        return _host_fallback(data, reservation)
 
 
 def _decompress_sharded_batch(data, mesh: Mesh | None, reservation,
                               device="cuda") -> bytes:
     from .frame import parse_frames
-    from .pipeline import (BatchCapacityExceeded, _verify_checksums,
-                           build_seq_table)
+    from .pipeline import (BatchCapacityExceeded, _host_fallback,
+                           _verify_checksums, build_seq_table)
 
     if mesh is None:
         mesh = make_mesh(device=device)
@@ -767,9 +773,7 @@ def _decompress_sharded_batch(data, mesh: Mesh | None, reservation,
                                 pooled_cols=True)
     except BatchCapacityExceeded:
         # the stream decodes past int32 coordinates: the host engine
-        from .api import decompress_host
-
-        return decompress_host(data, reservation)
+        return _host_fallback(data, reservation)
     if table.n_out == 0:
         return b""
     if _use_chains(table, mesh.size):

@@ -113,8 +113,7 @@ class DecodeTicket:
                 if not self._verified:
                     # collected earlier with verify="none": settle the
                     # checksum contract now that bytes are host-side
-                    self._session._verify(self._buf, self._parsed, out,
-                                          self._table)
+                    self._settle(self._session._verify, out)
                     self._mark_verified()
                 self._out_np = out
             else:
@@ -129,12 +128,19 @@ class DecodeTicket:
                     # settled the contract already (and dropped the
                     # inputs it needed) while leaving zero-output segs
                     # in place: do not verify twice
-                    self._session._verify(self._buf, self._parsed, out,
-                                          self._table)
+                    self._settle(self._session._verify, out)
                 self._out_np = out
                 self._segs = None
                 self._mark_verified()
         return self._out_np
+
+    def _settle(self, verify, out) -> None:
+        """Check ``out``'s checksums with ``verify(buf, parsed, out,
+        table)``; a fault goes to :meth:`DecodeSession._rederive`."""
+        try:
+            verify(self._buf, self._parsed, out, self._table)
+        except Lz4Error as e:
+            self._session._rederive(bytes(self._buf), e)
 
     def _mark_verified(self) -> None:
         """Checksum contract settled: drop the inputs kept for it."""
@@ -165,8 +171,7 @@ class DecodeTicket:
         def _verify_dev(out_dev):
             if verify == "device" and not self._verified:
                 if self._table is not None:
-                    pl._verify_checksums_device(
-                        self._buf, self._parsed, out_dev, self._table)
+                    self._settle(pl._verify_checksums_device, out_dev)
                 self._mark_verified()
 
         if self._out_dev is not None:
@@ -285,6 +290,26 @@ class DecodeSession:
                     ticket._fail(e)
 
     def _prep_one(self, ticket: DecodeTicket, data: bytes) -> None:
+        try:
+            self._prep_batch(ticket, data)
+        except Lz4Error as e:
+            # the prep loop hands what this raises to the ticket
+            self._rederive(data, e)
+
+    def _rederive(self, data: bytes, fault: Lz4Error):
+        """Stream-order fault precedence, as ``decompress_to_device``:
+        the batch stages parse the whole structure before any checksum,
+        so the streaming host engine re-derives the diagnostic of
+        ``fault`` and raises it.  Where the host decodes ``data``
+        instead, the batch stages or the device's bytes are wrong: that
+        is raised, and the host's bytes are never served."""
+        pl._host_fallback(data, self.reservation)
+        raise RuntimeError(
+            "DecodeSession: the host engine decodes a frame that the "
+            f"device path rejected with {type(fault).__name__}: {fault}"
+        ) from fault
+
+    def _prep_batch(self, ticket: DecodeTicket, data: bytes) -> None:
         buf = np.frombuffer(data, dtype=np.uint8)
         if buf.size == 0:
             ticket._finish(buf, None, None, [])
@@ -294,10 +319,8 @@ class DecodeSession:
             table = pl.build_seq_table(buf, parsed, self.reservation,
                                        data, pooled_cols=True)
         except pl.BatchCapacityExceeded:
-            from .api import decompress_host
-
             # the streaming host engine fully verifies checksums itself
-            ticket._out_np = decompress_host(data, self.reservation)
+            ticket._out_np = pl._host_fallback(data, self.reservation)
             ticket._verified = True
             ticket._done.set()
             return

@@ -80,7 +80,7 @@ def test_kernel_table_names_every_kernel_of_the_port():
                                    "pipelined_path", "session_path",
                                    "verify_compare", "sustained_phase",
                                    "staging_phase", "busy_phase",
-                                   "error_phase",
+                                   "error_phase", "soak_phase",
                                    "small_fetch_phase", "sharded_path",
                                    "sharded_phase", "encode_path",
                                    "encode_phase"])
@@ -89,8 +89,37 @@ def test_main_drives_every_phase(phase):
     assert callable(getattr(smoke, phase))
     main_src = (REPO / "chip_smoke.py").read_text().split("def main()")[1]
     assert f"{phase}(" in main_src
-    for path in ("ab", "pipelined", "session", "sharded", "encode"):
+    for path in ("ab", "pipelined", "session", "sharded", "encode",
+                 "soak"):
         assert f'paths["{path}"]' in main_src
+
+
+def test_soak_phase_runs_fixed_seeds_before_the_last_line():
+    """The soak's base seed and round count are module constants (the
+    rounds are the same in every run), soak_phase runs them after the
+    error phase and after the check that every fixed path's kernels
+    launched, and its launches count in the kernels line."""
+    import ast
+    import inspect
+
+    smoke = _smoke()
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    consts = {t.id: node.value for node in tree.body
+              if isinstance(node, ast.Assign) for t in node.targets
+              if isinstance(t, ast.Name)}
+    for name in ("SOAK_SEED", "SOAK_ROUNDS"):
+        assert isinstance(consts[name], ast.Constant), name
+        assert isinstance(getattr(smoke, name), int), name
+    assert smoke.SOAK_ROUNDS > 0
+    src = inspect.getsource(smoke.soak_phase)
+    assert "soak.soak(SOAK_SEED, \"cuda\", rounds=SOAK_ROUNDS)" in src
+    assert "cover.require(\"cuda\")" in src
+    main_src = (REPO / "chip_smoke.py").read_text().split("def main()")[1]
+    at = main_src.index('paths["soak"] = soak_phase(')
+    assert main_src.index("was never launched") < at
+    assert main_src.index("error_phase(") < at
+    assert at < main_src.index("launches = {") < main_src.index(
+        'json.dumps({"kernels"') < main_src.index('json.dumps({"ok": True')
 
 
 def test_sharded_tier_names_each_tier():
@@ -126,9 +155,9 @@ def test_sharded_tier_names_each_tier():
 
 
 def test_host_decode_refused_catches_the_fallback():
-    """Inside host_decode_refused a frame that decompress_sharded would
-    hand to decompress_host fails the smoke; a sound frame decodes; the
-    real decompress_host is back afterwards."""
+    """Inside host_decode_refused a frame that decompress_sharded hands
+    to the host engine fails the smoke when the block ends; a sound
+    frame decodes; decompress_host itself is left as it was."""
     import lz4tpu_torch as lt
     from lz4tpu_torch import api, dist
 
@@ -139,9 +168,11 @@ def test_host_decode_refused_catches_the_fallback():
     with smoke.host_decode_refused():
         assert dist.decompress_sharded(bytes(data), mesh) == (
             bytes(range(256)) * 512)
-        data[-1] ^= 1                   # the content checksum
-        with pytest.raises(smoke.SmokeFailure, match="decompress_host"):
-            dist.decompress_sharded(bytes(data), mesh)
+    data[-1] ^= 1                       # the content checksum
+    with pytest.raises(smoke.SmokeFailure, match="fell back to the host"):
+        with smoke.host_decode_refused():
+            with pytest.raises(lt.ChecksumError):
+                dist.decompress_sharded(bytes(data), mesh)
     assert api.decompress_host is real
     with pytest.raises(lt.Lz4Error):
         dist.decompress_sharded(bytes(data), mesh)

@@ -2,9 +2,9 @@
 both made to fail, the package imports, compresses, and decodes one
 input per engine on the CPU, through the pipelined decode, the session
 and the A/B harness's plain side too, encodes on the device path
-(``device="cpu"``) and runs its console tools; no file of it (nor
-``chip_smoke.py``, nor the bench ``bench_torch/``) imports either or
-reaches into ``lz4tpu/`` by path;
+(``device="cpu"``), runs its console tools and a round of its soak; no
+file of it (nor ``chip_smoke.py``, nor the bench ``bench_torch/``)
+imports either or reaches into ``lz4tpu/`` by path;
 and its native engine is built from its own C++ source."""
 
 import pathlib
@@ -100,6 +100,10 @@ assert cli.main(["lz4-bench", "--encode", "--backend", "device",
 sys.stdin, sys.stdout, sys.stderr = sys.__stdin__, sys.__stdout__, \
     sys.__stderr__
 assert got == small
+# one round of the soak: every device path, corruptions, the encoder
+from lz4tpu_torch.exp import soak
+cover = soak.one_round(np.random.default_rng(0), 0, "cpu")
+assert cover.rounds == 1 and cover.encoded == 2
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 assert "jax" not in loaded and "lz4tpu" not in loaded
 print("standalone OK")
@@ -120,7 +124,8 @@ def _port_files():
     assert len(files) >= 26
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"lz4tpu_torch/serve.py", "lz4tpu_torch/exp/ab.py",
-            "lz4tpu_torch/exp/__init__.py", "lz4tpu_torch/spans.py",
+            "lz4tpu_torch/exp/__init__.py", "lz4tpu_torch/exp/soak.py",
+            "lz4tpu_torch/spans.py",
             "lz4tpu_torch/dist.py", "lz4tpu_torch/device/encode.py",
             "lz4tpu_torch/cli.py", "chip_smoke.py",
             "bench_torch/__main__.py", "bench_torch/corpora.py",
