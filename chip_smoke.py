@@ -40,7 +40,15 @@ g++:  ``python3 chip_smoke.py``.  It
    (and whether the four span units' routes overlap on the card); times
    the device encoder's passes on one 4 MiB block stage by stage, its
    host emitters, peak device memory and end-to-end encode rates;
-5. checks that corrupted frames raise what
+5. runs the port as a user installs it (``wheel_phase``): the wheel
+   built from a copy of the checkout, ``pip install --target`` into a
+   temporary directory, and one process with only that tree on its
+   path building the kernels into the tree's ``_build/`` and decoding
+   the main path's corpora on the card (every decode kernel launched,
+   the device encoder's frame decoded back, no host fallback, every
+   output equal to the installed host engine's), then the installed
+   ``lz4tpu-bench-torch``;
+6. checks that corrupted frames raise what
    ``lz4tpu_torch.decompress_host`` raises, under both verify modes;
    then soaks: ``SOAK_ROUNDS`` seeded rounds of
    ``lz4tpu_torch.exp.soak`` from ``SOAK_SEED`` (random payloads and
@@ -48,9 +56,9 @@ g++:  ``python3 chip_smoke.py``.  It
    device entry point against the host engine, no host fallback on a
    frame the host decodes), requiring every decode kernel launched and
    every engine planned;
-6. times the device content checksum against a fetch and the native
+7. times the device content checksum against a fetch and the native
    host hash, size by size (why the port has no small-fetch branch);
-7. prints one JSON line with every kernel, the card line, and last
+8. prints one JSON line with every kernel, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero before the last line.  Without CUDA, or
@@ -194,7 +202,7 @@ def repo_text(n) -> bytes:
     """The checkout's own .py/.cpp text in sorted path order (program
     files only, so the corpus changes when the code does and not with
     the documents; build outputs and unpacked copies are left out)."""
-    skip = {"build", "__pycache__", "_checkout", "chiprun_out"}
+    skip = {"build", "_build", "__pycache__", "_checkout", "chiprun_out"}
     files = sorted(
         p for p in HERE.rglob("*")
         if p.suffix in (".py", ".cpp") and p.is_file()
@@ -259,13 +267,20 @@ def segment_shapes(np, lt, corp):
     frag1m (one chain), indep2m (2 MiB of fragments, seed 14, in 32
     independent 64 KiB blocks), frag32m in 512 independent 64 KiB
     blocks, and src1m (one chain) last."""
-    indep = frag_text(np, 2 << 20, 8192, 3, 8, 14)
     kw = dict(block_max_code=4, block_independence=True)
     return (("frag1m", *corp["frag1m"][:2]),
-            ("indep2m", lt.compress(indep, **kw), indep),
+            ("indep2m", *indep2m(np, lt)),
             ("frag32m in independent 64 KiB blocks",
              lt.compress(corp["frag32m"][1], **kw), corp["frag32m"][1]),
             ("src1m", *corp["src1m"][:2]))
+
+
+def indep2m(np, lt):
+    """2 MiB of fragments (seed 14) in 32 independent 64 KiB blocks, as
+    ``(compressed, original)``: H6's shape under engine="pallas"."""
+    indep = frag_text(np, 2 << 20, 8192, 3, 8, 14)
+    return lt.compress(indep, block_max_code=4,
+                       block_independence=True), indep
 
 
 def expand_shapes(np, lt, tpl, corp):
@@ -2143,6 +2158,228 @@ def encode_phase(torch, np, lt, corp, dev, name_card):
           f"B, {ms:.3f} ms (one call) [{name_card}]", flush=True)
 
 
+# The wheel phase's program, run by the interpreter of the smoke with the
+# installed tree alone on its path (argv: site, inputs, checkout).  It
+# builds the kernels into the installed tree's _build/, then drives the
+# main path over the input files on the card and prints one JSON line.
+WHEEL_MAIN = r'''
+import sys
+sys.modules["jax"] = None            # any `import jax` now fails
+sys.modules["lz4tpu"] = None         # and any `import lz4tpu`
+import hashlib
+import json
+import pathlib
+import time
+
+site, inputs, checkout = (pathlib.Path(a).resolve() for a in sys.argv[1:4])
+if any(pathlib.Path(p or ".").resolve() == checkout for p in sys.path):
+    raise SystemExit(f"the checkout is on sys.path: {sys.path}")
+import torch
+import lz4tpu_torch as lt
+from lz4tpu_torch import _kernels, native, pipeline
+from lz4tpu_torch.device import encode as enc
+
+pkg = site / "lz4tpu_torch"
+if pathlib.Path(lt.__file__).resolve().parent != pkg:
+    raise SystemExit(f"lz4tpu_torch imported from {lt.__file__}")
+if _kernels.BUILD_DIR.resolve() != pkg / "_build":
+    raise SystemExit(f"kernel cache at {_kernels.BUILD_DIR}")
+t0 = time.perf_counter()
+so = _kernels.build()
+t1 = time.perf_counter()
+_kernels.lib()
+if not native.available():
+    raise SystemExit("the native engine did not build in the tree")
+t2 = time.perf_counter()
+maps = {ln.split()[-1] for ln in open("/proc/self/maps")
+        if ln.rstrip().endswith((_kernels.LIB_NAME, "_lz4core.so"))}
+seen = []
+real = enc._candidates_compact_device
+def _candidates(*a, **k):
+    out = real(*a, **k)
+    seen.extend(str(t.device) for t in (out if isinstance(out, tuple)
+                                        else (out,)))
+    return out
+enc._candidates_compact_device = _candidates
+
+_kernels.reset_launches()
+fallbacks = pipeline.HOST_FALLBACKS
+calls = {}
+for name, how in json.loads(sys.argv[4]):
+    data = (inputs / name).read_bytes()
+    before = dict(_kernels.LAUNCHES)
+    s = time.perf_counter()
+    if how == "to_device":
+        t = lt.decompress_to_device(data, verify="device")
+        torch.cuda.synchronize()
+        if not t.is_cuda:
+            raise SystemExit(f"{name}: the result is not on the card")
+        out = t.cpu().numpy().tobytes()
+    elif how == "pallas":
+        out = lt.decompress_device(data, engine="pallas")
+    else:                               # encode on the card, decode back
+        frame = lt.compress(data, backend="device")
+        t = lt.decompress_to_device(frame, verify="device")
+        if t.cpu().numpy().tobytes() != data:
+            raise SystemExit(f"{name}: the device encoder's frame does "
+                             "not decode back on the card")
+        out, data = data, frame
+    ms = 1e3 * (time.perf_counter() - s)
+    if out != lt.decompress_host(data):
+        raise SystemExit(f"{name} ({how}): differs from the host engine")
+    calls[name] = {"how": how, "bytes": len(out), "ms": ms,
+                   "sha256": hashlib.sha256(out).hexdigest(),
+                   "launches": {k: v - before[k]
+                                for k, v in _kernels.LAUNCHES.items()}}
+print(json.dumps({
+    "file": lt.__file__, "build_dir": str(_kernels.BUILD_DIR),
+    "library": str(so), "loaded": sorted(maps),
+    "nvcc_s": t1 - t0, "native_s": t2 - t1,
+    "nvcc_log": (_kernels.BUILD_DIR / "nvcc.log").is_file(),
+    "launches": dict(_kernels.LAUNCHES), "calls": calls,
+    "host_fallbacks": pipeline.HOST_FALLBACKS - fallbacks,
+    "encoder_devices": sorted(set(seen)),
+    "modules": sorted({m.split(".")[0] for m, v in sys.modules.items()
+                       if v is not None})}))
+'''
+
+# What the wheel phase decodes on the card, and the kernels each call
+# must launch: (input file, call, kernels)
+WHEEL_CALLS = (
+    ("words32m.lz4", "to_device", ("mxu2_route", "xxh32_stream")),
+    ("frag32m.lz4", "to_device", ("fused_expand", "fused_route")),
+    ("z9m.lz4", "to_device", ("block_fill",)),
+    ("frag32m-bsum64k.lz4", "to_device", ("xxh32_blocks",)),
+    ("indep2m.lz4", "pallas", ("segment_decode",)),
+    ("frag32m-block2.bin", "encode", ()),
+)
+
+
+def wheel_phase(np, lt, corp, words, name_card):
+    """The port as a user installs it: the wheel built with setuptools'
+    PEP 517 backend from a copy of the checkout, installed with ``pip
+    install --target`` into a temporary directory, and one process with
+    that tree alone on its path (``jax`` and ``lz4tpu`` blocked,
+    ``LZ4TPU_*`` unset, the working directory the temporary one).  It
+    builds the kernels into ``<site>/lz4tpu_torch/_build/`` and drives
+    the main path over the bench-size corpora (:data:`WHEEL_CALLS`):
+    every output equal to the installed host engine's and to the
+    original, every kernel launched, no host fallback; then the
+    installed ``lz4tpu-bench-torch --backend device`` on one frame.
+    Returns the installed package's launch counts."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    origs = {"words32m.lz4": words[1], "frag32m.lz4": corp["frag32m"][1],
+             "z9m.lz4": corp["z9m"][1],
+             "frag32m-bsum64k.lz4": corp["frag32m-bsum64k"][1]}
+    comp = {"words32m.lz4": words[0], "frag32m.lz4": corp["frag32m"][0],
+            "z9m.lz4": corp["z9m"][0],
+            "frag32m-bsum64k.lz4": corp["frag32m-bsum64k"][0]}
+    comp["indep2m.lz4"], origs["indep2m.lz4"] = indep2m(np, lt)
+    block2 = corp["frag32m"][1][BLOCK:2 * BLOCK]
+    comp["frag32m-block2.bin"] = origs["frag32m-block2.bin"] = block2
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("LZ4TPU_")}
+    with tempfile.TemporaryDirectory(prefix="lz4tpu_wheel_") as tmp:
+        tmp = pathlib.Path(tmp)
+        src, out, site, inputs = (tmp / d for d in ("src", "dist", "site",
+                                                    "inputs"))
+        t0 = time.perf_counter()
+        skip = shutil.ignore_patterns("__pycache__", "*.so", "_build",
+                                      "build")
+        for name in ("lz4tpu", "lz4tpu_torch"):
+            shutil.copytree(HERE / name, src / name, ignore=skip)
+        for name in ("pyproject.toml", "README.md", "LICENSE"):
+            shutil.copy(HERE / name, src / name)
+        r = subprocess.run(
+            [sys.executable, "-c",
+             "import sys\nfrom setuptools import build_meta\n"
+             "out = sys.argv[1]\n"      # the backend rewrites sys.argv
+             "build_meta.build_wheel(out)\n", str(out)],
+            cwd=src, env=env, capture_output=True, text=True, timeout=300)
+        need(r.returncode == 0, f"wheel build failed: {r.stderr[-3000:]}")
+        wheel, = out.glob("*.whl")
+        t1 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "pip", "install", "--no-deps",
+             "--no-index", "--no-compile", "--disable-pip-version-check",
+             "--target", str(site), str(wheel)],
+            env=env, capture_output=True, text=True, timeout=300)
+        need(r.returncode == 0, f"pip install failed: {r.stderr[-3000:]}")
+        t2 = time.perf_counter()
+        need(not list(site.rglob("*.so")), "the wheel installed a binary")
+        inputs.mkdir()
+        for name, blob in comp.items():
+            (inputs / name).write_bytes(blob)
+        env["PYTHONPATH"] = str(site)
+        calls = [[name, how] for name, how, _k in WHEEL_CALLS]
+        r = subprocess.run(
+            [sys.executable, "-c", WHEEL_MAIN, str(site), str(inputs),
+             str(HERE), json.dumps(calls)],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        need(r.returncode == 0, "the installed tree's main path failed "
+                                f"(rc {r.returncode}): {r.stderr[-3000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        t3 = time.perf_counter()
+        pkg = site.resolve() / "lz4tpu_torch"
+        need(pathlib.Path(res["file"]).resolve().parent == pkg,
+             f"imported {res['file']}, not the installed tree")
+        need(pathlib.Path(res["build_dir"]).resolve() == pkg / "_build"
+             and res["nvcc_log"], f"kernels built in {res['build_dir']}")
+        need(res["loaded"] and all(pathlib.Path(p).resolve()
+                                   .is_relative_to(site.resolve())
+                                   for p in res["loaded"]),
+             f"libraries loaded from outside the tree: {res['loaded']}")
+        need("jax" not in res["modules"] and "lz4tpu" not in res["modules"],
+             "the installed tree imported jax or lz4tpu")
+        need(res["host_fallbacks"] == 0,
+             f"{res['host_fallbacks']} host fallback(s) in the installed "
+             "tree's main path")
+        need(res["encoder_devices"] == ["cuda:0"],
+             f"the device encoder ran on {res['encoder_devices']}")
+        for name, how, kernels in WHEEL_CALLS:
+            c = res["calls"][name]
+            need(c["sha256"] == hashlib.sha256(origs[name]).hexdigest(),
+                 f"{name} ({how}): the installed tree's bytes differ from "
+                 "the original")
+            for k in kernels:
+                need(c["launches"][k] > 0,
+                     f"{name} ({how}): kernel {k} was not launched")
+        need(not (HERE / "build" / "lz4tpu_torch").exists(),
+             "the checkout has a build/lz4tpu_torch/")
+        bench = site / "bin" / "lz4tpu-bench-torch"
+        r = subprocess.run(
+            [str(bench), "--backend", "device", "--reps", "1", "--stats",
+             str(inputs / "frag32m.lz4")],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        need(r.returncode == 0 and
+             f"-> {len(origs['frag32m.lz4'])} B" in r.stderr,
+             f"lz4tpu-bench-torch: rc {r.returncode}: {r.stderr[-2000:]}")
+        t4 = time.perf_counter()
+    decoded = sum(c["bytes"] for c in res["calls"].values())
+    print(f"[wheel] built in {t1 - t0:.2f} s, pip install --target in "
+          f"{t2 - t1:.2f} s, nvcc into the installed tree in "
+          f"{res['nvcc_s']:.2f} s (native engine {res['native_s']:.2f} s), "
+          f"main path and checks in {t3 - t2:.2f} s, {decoded} B decoded, "
+          f"every output equal to the host engine's, 0 host fallbacks; "
+          f"lz4tpu-bench-torch in {t4 - t3:.2f} s; phase "
+          f"{time.perf_counter() - t_phase:.2f} s; launches "
+          f"{ {k: v for k, v in res['launches'].items() if v} }; cache "
+          f"{res['build_dir']} [{name_card}]", flush=True)
+    for name, c in res["calls"].items():
+        print(f"[wheel] {name} ({c['how']}): {c['bytes']} B, "
+              f"{c['ms']:.3f} ms (first call), launches "
+              f"{ {k: v for k, v in c['launches'].items() if v} } "
+              f"[{name_card}]", flush=True)
+    print("[wheel] lz4tpu-bench-torch: "
+          + " | ".join(r.stderr.strip().splitlines())
+          + f" [{name_card}]", flush=True)
+    return res["launches"]
+
+
 def main() -> int:
     if not (HERE / "lz4tpu_torch" / "csrc").is_dir():
         print("chip_smoke: lz4tpu_torch/ not found beside the script; run "
@@ -2225,6 +2462,8 @@ def main() -> int:
     busy_phase(torch, lt, corp, card)
     sharded_phase(torch, lt, corp, card)
     encode_phase(torch, np, lt, corp, dev, card)
+    torch.cuda.empty_cache()        # the installed tree's process shares
+    paths["wheel"] = wheel_phase(np, lt, corp, words, card)    # the card
     for name in KERNELS:
         need(sum(p[name] for p in paths.values()) > 0,
              f"kernel {name} was never launched by a path")

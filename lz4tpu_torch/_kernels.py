@@ -3,9 +3,12 @@
 The sources are compiled at first use with ``nvcc`` for Hopper
 (``sm_90a``), one compiler process per source and all started together,
 and linked into one shared library with a plain C interface, cached
-under ``build/lz4tpu_torch/`` beside the package (override with
-``LZ4TPU_TORCH_BUILD``) and rebuilt when a source is newer.  The library
-is bound with ``ctypes``: every pointer and the stream are ``c_void_p``.
+in the package's own ``_build/`` directory, one cache per tree, in a
+checkout and in an installed tree alike (override with
+``LZ4TPU_TORCH_BUILD``), and rebuilt when a source is newer.  The cache
+stays out of a checkout's ``build/``, which setuptools uses as scratch
+and packaging removes.  The library is bound with ``ctypes``: every
+pointer and the stream are ``c_void_p``.
 Each C entry returns ``cudaGetLastError()`` after its launch; the
 launch helpers here raise on a nonzero status and only then count the
 launch in :data:`LAUNCHES`.
@@ -26,8 +29,8 @@ import threading
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = pathlib.Path(os.environ.get(
-    "LZ4TPU_TORCH_BUILD", CSRC.parent.parent / "build" / "lz4tpu_torch"))
+BUILD_DIR = pathlib.Path(os.environ.get("LZ4TPU_TORCH_BUILD",
+                                        CSRC.parent / "_build"))
 LIB_NAME = "liblz4tpu_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")

@@ -449,8 +449,10 @@ def _tool_main(tool: str):
 
 
 # Entry points, one per tool, as the JAX package's console scripts have;
-# each mirrors one of the reference's standalone binaries.  The port's
-# surface is ``python -m lz4tpu_torch.cli``: it installs no scripts.
+# each mirrors one of the reference's standalone binaries.  The wheel
+# installs them as the JAX package's script names with ``-torch``
+# appended (``unlz4tpu-torch``, ``lz4tpu-bench-torch``, ...); in a
+# checkout, ``python -m lz4tpu_torch.cli <tool>`` runs the same.
 main_unlz4 = _tool_main("unlz4")
 main_unlz4_simple = _tool_main("unlz4-simple")
 main_lz4hdrinfo = _tool_main("lz4hdrinfo")

@@ -71,7 +71,7 @@ def test_corpora_are_fixed_by_the_seed():
 
 def test_corpora_do_not_move_with_the_checkout_text(tmp_path):
     copy = tmp_path / "checkout"
-    skip = shutil.ignore_patterns("__pycache__", "build")
+    skip = shutil.ignore_patterns("__pycache__", "build", "_build")
     for name in ("bench_torch", "lz4tpu_torch"):
         shutil.copytree(REPO / name, copy / name, ignore=skip)
     for rel in ("lz4tpu_torch/pipeline.py", "bench_torch/run.py",

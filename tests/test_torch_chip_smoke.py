@@ -83,14 +83,14 @@ def test_kernel_table_names_every_kernel_of_the_port():
                                    "error_phase", "soak_phase",
                                    "small_fetch_phase", "sharded_path",
                                    "sharded_phase", "encode_path",
-                                   "encode_phase"])
+                                   "encode_phase", "wheel_phase"])
 def test_main_drives_every_phase(phase):
     smoke = _smoke()
     assert callable(getattr(smoke, phase))
     main_src = (REPO / "chip_smoke.py").read_text().split("def main()")[1]
     assert f"{phase}(" in main_src
     for path in ("ab", "pipelined", "session", "sharded", "encode",
-                 "soak"):
+                 "soak", "wheel"):
         assert f'paths["{path}"]' in main_src
 
 
@@ -266,3 +266,35 @@ def test_candidate_devices_sees_both_passes():
     assert len(seen) == 1 + 2 + 2
     assert {d.type for d in seen} == {"cpu"}
     assert enc._candidates_compact_device is real
+
+
+def test_wheel_phase_runs_every_decode_kernel_from_an_installed_tree():
+    """The wheel phase builds the wheel, installs it with pip --target
+    and drives the main path in a process that sees only the installed
+    tree (jax and lz4tpu blocked, no LZ4TPU_* variable); its calls
+    between them must launch every decode kernel and the encoder, and
+    its launches join the paths' before the check that every kernel
+    was launched."""
+    import inspect
+
+    from lz4tpu_torch import _kernels
+
+    smoke = _smoke()
+    wanted = {k for _name, _how, ks in smoke.WHEEL_CALLS for k in ks}
+    assert wanted == set(_kernels.LAUNCHES) - {"mxu2_route_ab"}
+    assert [how for _n, how, _k in smoke.WHEEL_CALLS].count("encode") == 1
+    assert {how for _n, how, _k in smoke.WHEEL_CALLS} == {
+        "to_device", "pallas", "encode"}
+    src = inspect.getsource(smoke.wheel_phase)
+    for word in ("build_meta.build_wheel", '"pip", "install"', "--target",
+                 'startswith("LZ4TPU_")', 'env["PYTHONPATH"] = str(site)',
+                 '"lz4tpu-bench-torch"', 'res["host_fallbacks"] == 0',
+                 '(HERE / "build" / "lz4tpu_torch").exists()'):
+        assert word in src, word
+    for word in ('sys.modules["jax"] = None', 'sys.modules["lz4tpu"] = None',
+                 "_kernels.build()", 'verify="device"', 'engine="pallas"',
+                 'backend="device"', "lt.decompress_host("):
+        assert word in smoke.WHEEL_MAIN, word
+    main_src = (REPO / "chip_smoke.py").read_text().split("def main()")[1]
+    assert main_src.index('paths["wheel"] = wheel_phase(') < main_src.index(
+        "was never launched")

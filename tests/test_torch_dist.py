@@ -588,3 +588,58 @@ def test_two_process_encode(tmp_path):
                                        block_max_code=4, **kw)
         for rank in (0, 1):
             assert (tmp_path / f"{name}.{rank}").read_bytes() == want, name
+
+
+# the soak's long-match payload (seed 1190175549): a match that begins
+# more than 64 KiB before a span, which tier 3 once resolved past the
+# tails the spans exchange (tests/test_torch_soak.py)
+LONG_MATCH_SEED = 1190175549
+
+_TIER3_WORKER = f"seed = {LONG_MATCH_SEED}\n" + r'''
+import sys
+import numpy as np
+import torch
+from lz4tpu_torch import dist, pipeline
+from lz4tpu_torch.api import decompress_host
+from lz4tpu_torch.exp import soak
+
+port, rank, out_dir = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+dist.initialize_multihost(f"127.0.0.1:{port}", 2, rank, device="cpu")
+mesh = dist.make_mesh(2, "cpu")
+assert mesh.size == 4
+assert [e.process_index for e in mesh.entries] == [0, 0, 1, 1]
+rnd = soak.draw_round(np.random.default_rng(seed), seed, None)
+buf = np.frombuffer(rnd.frame, np.uint8)
+table = pipeline.build_seq_table(
+    buf, pipeline.parse_frames(buf, rnd.reservation), rnd.reservation,
+    rnd.frame)
+assert not dist._use_chains(table, mesh.size)          # tier 3
+calls = pipeline.HOST_FALLBACKS
+out = dist.decompress_sharded(rnd.frame, mesh, rnd.reservation)
+assert pipeline.HOST_FALLBACKS == calls, "the host engine decoded it"
+assert out == decompress_host(rnd.frame, rnd.reservation)
+open(f"{out_dir}/long.{rank}", "wb").write(out)
+torch.distributed.destroy_process_group()
+print(f"WORKER{rank}_OK", flush=True)
+'''
+
+
+def test_two_process_tier3_long_match(tmp_path):
+    """Tier 3 across two processes of two CPU entries each (gloo): the
+    spans' tails cross processes in one all-gather.  On the long-match
+    payload both processes return the host engine's bytes, as one
+    process of four entries does, and neither calls the host engine.
+    ``lz4tpu.dist`` returns wrong bytes here (a known fault of the
+    reference package), so the host engine is the reference."""
+    from lz4tpu_torch.exp import soak
+
+    rnd = soak.draw_round(np.random.default_rng(LONG_MATCH_SEED),
+                          LONG_MATCH_SEED, None)
+    assert rnd.kind == "period" and len(rnd.expected) == 398447
+    _two_processes(tmp_path, _TIER3_WORKER)
+    want = lz4tpu_torch.decompress_host(rnd.frame, rnd.reservation)
+    assert want == rnd.expected
+    assert td.decompress_sharded(rnd.frame, td.make_mesh(4, "cpu"),
+                                 rnd.reservation) == want
+    for rank in (0, 1):
+        assert (tmp_path / f"long.{rank}").read_bytes() == want, rank

@@ -3,8 +3,9 @@ both made to fail, the package imports, compresses, and decodes one
 input per engine on the CPU, through the pipelined decode, the session
 and the A/B harness's plain side too, encodes on the device path
 (``device="cpu"``), runs its console tools and a round of its soak; no
-file of it (nor ``chip_smoke.py``, nor the bench ``bench_torch/``)
-imports either or reaches into ``lz4tpu/`` by path;
+file of it (nor ``chip_smoke.py``, nor the bench ``bench_torch/``, nor
+the coverage tool ``tools/pycov_torch.py``) imports either or reaches
+into ``lz4tpu/`` by path;
 and its native engine is built from its own C++ source."""
 
 import pathlib
@@ -120,7 +121,8 @@ def test_decodes_every_engine_with_jax_blocked(tmp_path):
 
 def _port_files():
     files = (sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-             + sorted((REPO / "bench_torch").glob("*.py")))
+             + sorted((REPO / "bench_torch").glob("*.py"))
+             + [REPO / "tools" / "pycov_torch.py"])
     assert len(files) >= 26
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"lz4tpu_torch/serve.py", "lz4tpu_torch/exp/ab.py",
@@ -129,7 +131,8 @@ def _port_files():
             "lz4tpu_torch/dist.py", "lz4tpu_torch/device/encode.py",
             "lz4tpu_torch/cli.py", "chip_smoke.py",
             "bench_torch/__main__.py", "bench_torch/corpora.py",
-            "bench_torch/run.py", "bench_torch/spread.py"} <= names
+            "bench_torch/run.py", "bench_torch/spread.py",
+            "tools/pycov_torch.py"} <= names
     return files
 
 
@@ -223,3 +226,40 @@ def test_exports_match_the_jax_package():
     for name in ("decompress_device", "decompress_into", "min_buffer_size",
                  "hex8", "hex32"):
         assert name in ours
+
+
+def test_coverage_tool_imports_only_the_stdlib_and_pycov():
+    """tools/pycov_torch.py imports the standard library, pytest (to run
+    the tests it measures) and tools/pycov.py, which itself imports
+    neither jax nor lz4tpu; it runs where jax is absent."""
+    import ast
+
+    allowed = {"__future__", "argparse", "dis", "glob", "json", "os",
+               "pycov", "pytest", "runpy", "sys"}
+    tool = REPO / "tools" / "pycov_torch.py"
+    for node in ast.walk(ast.parse(tool.read_text())):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module]
+        else:
+            continue
+        for m in mods:
+            assert m.split(".")[0] in allowed, m
+    for node in ast.walk(ast.parse((REPO / "tools" / "pycov.py").read_text())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                    else [node.module])
+            assert not {m.split(".")[0] for m in mods} & {"jax", "lz4tpu"}
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         "sys.modules['jax'] = None\n"
+         "sys.modules['lz4tpu'] = None\n"
+         "sys.argv = ['pycov_torch', '--help']\n"
+         f"sys.path.insert(0, {str(tool.parent)!r})\n"
+         "import runpy\n"
+         f"runpy.run_path({str(tool)!r}, run_name='__main__')\n"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "report" in r.stdout
