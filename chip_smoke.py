@@ -14,7 +14,7 @@ g++:  ``python3 chip_smoke.py``.  It
    kernels must equal the native host hash and the segment kernel the
    original bytes.  Kernels are timed with CUDA events, and each gets
    the least time the card could take for the same work (its bound);
-4. drives eight paths over seeded in-process corpora, the launch
+4. drives nine paths over seeded in-process corpora, the launch
    counters set to 0 before each and read after it:
    ``decompress_to_device(verify="host")``,
    ``decompress_to_device(verify="device")``, ``decompress_device``
@@ -26,7 +26,11 @@ g++:  ``python3 chip_smoke.py``.  It
    and ``dist.decompress_sharded`` on a one-entry mesh and on four
    entries of cuda:0 (each on its own stream), requiring the original
    bytes, the planned engines or sharding tier and the kernels each
-   path must launch; an eighth path encodes: ``compress(backend=
+   path must launch; ``numpy_prep`` runs these entry points again with
+   the native host engine off (``native.available()`` False, its prep,
+   pack and resolve functions refusing), so the numpy host prep feeds
+   the same kernels, and times its ``plan`` against the native one's;
+   a ninth path encodes: ``compress(backend=
    "device"|"device-emit")`` on the card against the same calls on the
    CPU, ``dist.compress_sharded`` on both meshes against
    ``compress(backend="device")``, every frame decoded back on the card,
@@ -1794,6 +1798,140 @@ def sharded_path(torch, np, lt, tpl, _kernels, corp, name_card):
     return dict(_kernels.LAUNCHES)
 
 
+# what the numpy_prep path decodes, and the native functions it refuses
+NUMPY_PREP = ("z9m", "b3.5m", "frag1m", "src1m", "frag2m-bsum",
+              "frag2m-legacy", "frag32m-indep")
+NATIVE_PREP = ("prep_fused_chain", "prep_fused_chain_pre",
+               "prep_fused_pre_range", "prep_phase1", "pack_dense2_chain",
+               "resolve_window")
+
+
+@contextlib.contextmanager
+def native_prep_off():
+    """Within: ``native.available()`` is False, so the port plans with
+    its numpy host prep, as ``lz4tpu`` does without its engine; the
+    native prep, pack and resolve functions are replaced by ones that
+    fail the smoke (at once, and again when the block ends, should a
+    caller swallow the exception).  Everything is restored on exit."""
+    from lz4tpu_torch import native
+
+    saved = {n: getattr(native, n) for n in ("available",) + NATIVE_PREP}
+    reached = []
+
+    def refuse(name):
+        def f(*_a, **_k):
+            reached.append(name)
+            raise SmokeFailure(f"native.{name} ran with the engine off")
+        return f
+
+    try:
+        native.available = lambda: False
+        for name in NATIVE_PREP:
+            setattr(native, name, refuse(name))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+    need(not reached, f"native prep reached with the engine off: {reached}")
+
+
+def numpy_prep_path(torch, np, lt, tpl, _kernels, corp, name_card,
+                    pairs=5):
+    """The decode entry points with the native host engine off (the
+    numpy fused prep, mxu2 packer and span resolve, ``native_prep_off``):
+    ``decompress_to_device(verify="device")`` on NUMPY_PREP,
+    ``verify="host"`` on frag1m and src1m, one DecodeSession window over
+    them, and ``decompress_sharded`` of frag1m and frag2m-legacy on four
+    entries of cuda:0 (span units, their rings resolved in numpy).
+    Every output must equal the host engine's bytes, with no host
+    fallback and the same engines as with the native prep; each decode
+    kernel must launch.  Then each corpus's ``plan`` ms with the numpy
+    prep against the native prep's, in turns (host clock, median of
+    ``pairs``)."""
+    from lz4tpu_torch import dist
+
+    t_phase = time.perf_counter()
+    cases = {n: corp[n] for n in NUMPY_PREP}
+    host = {n: lt.decompress_host(c[0]) for n, c in cases.items()}
+    for n, c in cases.items():
+        need(host[n] == c[1], f"{n}: the host engine differs from the "
+                              "original")
+    four = dist.Mesh(["cuda:0"] * 4)
+    _kernels.reset_launches()
+    fallbacks = tpl.HOST_FALLBACKS
+    first_ms = {}
+    with native_prep_off():
+        for name, (data, _blob, engines, _f, _b) in cases.items():
+            _b2, _p, _t, _plan, stats = plan_of(np, lt, tpl, data)
+            need(stats.engine_chains == engines,
+                 f"{name}: the numpy prep planned {stats.engine_chains}, "
+                 f"the native {engines}")
+            modes = ("device", "host") if name in ("frag1m", "src1m") \
+                else ("device",)
+            for mode in modes:
+                s = time.perf_counter()
+                res = lt.decompress_to_device(data, device="cuda",
+                                              verify=mode)
+                torch.cuda.synchronize()
+                first_ms[name, mode] = 1e3 * (time.perf_counter() - s)
+                need(res.is_cuda and res.cpu().numpy().tobytes()
+                     == host[name], f"{name}: decompress_to_device(verify="
+                                    f"{mode!r}) with the numpy prep differs")
+        with lt.DecodeSession(max_inflight=4) as session:
+            outs = windowed(session, [c[0] for c in cases.values()],
+                            lambda t: t.result())
+        need(outs == list(host.values()),
+             "the session with the numpy prep differs from the host engine")
+        for name in ("frag1m", "frag2m-legacy"):
+            tier, _units = sharded_tier(np, lt, tpl, dist, cases[name][0],
+                                        four)
+            need(tier == "spans", f"{name} on 4 entries: tier {tier} with "
+                                  "the numpy prep")
+            s = time.perf_counter()
+            out = dist.decompress_sharded(cases[name][0], four)
+            first_ms[name, "sharded"] = 1e3 * (time.perf_counter() - s)
+            need(out == host[name], f"{name}: decompress_sharded with the "
+                                    "numpy prep differs")
+    counts = dict(_kernels.LAUNCHES)
+    need(tpl.HOST_FALLBACKS == fallbacks,
+         f"{tpl.HOST_FALLBACKS - fallbacks} host fallback(s) with the "
+         "numpy prep")
+    for k in ("fused_expand", "fused_route", "mxu2_route", "block_fill",
+              "xxh32_stream", "xxh32_blocks"):
+        need(counts[k] > 0, f"the numpy_prep path did not launch {k}")
+    for name, (data, _blob, engines, _f, _b) in cases.items():
+        buf = np.frombuffer(data, np.uint8)
+        parsed = tpl.parse_frames(buf, lt.FOR_ALL)
+        # the table decompress_to_device builds with the engine off (no
+        # ``pre``: the single-block scan that makes it is native)
+        with native_prep_off():
+            t_np = tpl.build_seq_table(buf, parsed, lt.FOR_ALL, data,
+                                       pooled_cols=True)
+        t_nat = tpl.build_seq_table(buf, parsed, lt.FOR_ALL, data,
+                                    pooled_cols=True)
+
+        def plan_numpy():
+            with native_prep_off():
+                tpl.plan_decode(buf, parsed, t_np)
+
+        ms = in_turns(torch, {
+            "numpy": plan_numpy,
+            "native": lambda: tpl.plan_decode(buf, parsed, t_nat)}, pairs)
+        ratio = statistics.median(ms["numpy"]) / statistics.median(
+            ms["native"])
+        firsts = ", ".join(f"{m} {v:.3f} ms" for (n, m), v in
+                           first_ms.items() if n == name)
+        print(f"[numpy_prep] {name}: engines {engines}, plan numpy "
+              f"{med_range(ms['numpy'])} against native "
+              f"{med_range(ms['native'])}, ratio {ratio:.2f} (median of "
+              f"{pairs}, in turns); first calls with the numpy prep: "
+              f"{firsts} [{name_card}]", flush=True)
+    print(f"[numpy_prep] launches {({k: v for k, v in counts.items() if v})}"
+          f", host fallbacks 0; the phase {time.perf_counter() - t_phase:.2f}"
+          f" s [{name_card}]", flush=True)
+    return counts
+
+
 def sharded_phase(torch, lt, corp, name_card, pairs=5, calls=3):
     """frag32m end to end in turns: decompress_to_device (one launch
     pair, output on the card) against decompress_sharded on one entry
@@ -2455,6 +2593,8 @@ def main() -> int:
                                     card)
     paths["sharded"] = sharded_path(torch, np, lt, tpl, _kernels, corp,
                                     card)
+    paths["numpy_prep"] = numpy_prep_path(torch, np, lt, tpl, _kernels,
+                                          corp, card)
     paths["encode"] = encode_path(torch, lt, _kernels, corp, words, card)
     verify_compare(torch, lt, corp, card)
     sustained_phase(torch, np, lt, tpl, corp, card)

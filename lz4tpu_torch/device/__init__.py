@@ -68,14 +68,3 @@ def to_device_packed(arrays, device) -> list:
             .view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
             .reshape(a.shape) for a, off in zip(arrays, offs)]
 
-
-def native_engine():
-    """``lz4tpu_torch.native``, which the fused prep and the mxu2
-    packer require (the port carries no numpy fallback)."""
-    from .. import native
-
-    if not native.available():
-        raise RuntimeError(
-            "lz4tpu_torch: the native engine (lz4tpu_torch.native, built "
-            "with g++) is required for the fused and mxu2 host prep")
-    return native

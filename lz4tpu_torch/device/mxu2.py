@@ -2,10 +2,11 @@
 ``lz4tpu.device.mxu2``), for text chains that overflow the fused
 engine's in-substep patch budget.
 
-The native packer resolves every output byte's provenance on the host
-(``DensePack2``: one int32 code per byte).  The device side is kernel
-H3 (``csrc/mxu2.cu``): :func:`_route` resolves every byte of every
-chain at once, each ring reference turned into the absolute position
+The packer resolves every output byte's provenance on the host
+(``DensePack2``: one int32 code per byte), natively or, where the
+native engine is absent, in numpy (:func:`_pack_chain`).  The device
+side is kernel H3 (``csrc/mxu2.cu``): :func:`_route` resolves every
+byte of every chain at once, each ring reference turned into the absolute position
 of the byte it reads (:func:`sources_plain`) and the links followed by
 pointer jumping (:func:`jump_plain`).  :func:`route_plain`, the serial
 substep loop through the 64 KiB ring, is the spec and the version a
@@ -20,13 +21,14 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from . import native_engine, to_device, to_device_packed
+from . import to_device, to_device_packed
 from .ring import RING, part_segments, segments_array, zero_ring
 
 SUB = 2048          # output bytes per substep
 PAGES = 256         # 64 KiB history ring: 256 pages x 256 bytes
 ROWB = 256          # bytes per ring row
 PART_SUBS = 32768   # substeps per launch (64 MiB output, 256 MiB codes)
+_KIND_RING = 1 << 16
 
 
 @dataclasses.dataclass
@@ -51,6 +53,49 @@ def pack_from_numpy(pack) -> DensePack2:
                       n_sub=pack.n_sub, out_spans=list(pack.out_spans))
 
 
+def _pack_chain(
+    ll: np.ndarray, ls: np.ndarray, ml: np.ndarray, mo: np.ndarray,
+    buf: np.ndarray,
+) -> tuple[np.ndarray, int]:
+    """Resolve one chain's per-byte provenance in numpy (a copy of
+    ``lz4tpu.device.mxu2._pack_chain``; the native resolver's
+    reference); returns (code, n_out)."""
+    sizes = (ll + ml).astype(np.int64)
+    n_out = int(sizes.sum())
+    if n_out == 0:
+        return np.zeros((0,), np.int32), 0
+    starts = np.zeros(sizes.size, np.int64)
+    np.cumsum(sizes[:-1], out=starts[1:])
+    seq = np.repeat(np.arange(sizes.size, dtype=np.int64), sizes)
+    j = np.arange(n_out, dtype=np.int64)
+    local = j - starts[seq]
+    is_lit = local < ll[seq]
+    # literal byte values straight from the compressed buffer
+    litpos = np.where(is_lit, ls[seq].astype(np.int64) + local, 0)
+    litval = buf[litpos].astype(np.int32)
+    # match source: byte m of a match copies from (j - off), always
+    src = j - mo[seq]
+    sub_base = j & ~np.int64(SUB - 1)
+
+    # One resolve hop: fixed points are literals and bytes whose source
+    # lies before their substep; everything else steps to its source
+    # (same substep, since src >= sub_base and src < j).
+    fixed = is_lit | (src < sub_base)
+    h = np.where(fixed, j, src)
+    # Pointer doubling: chains are intra-substep, <= SUB-1 hops.
+    k = 1
+    while k < SUB:
+        h = h[h]
+        k <<= 1
+    a = h
+    code = np.where(
+        is_lit[a],
+        litval[a] << 17,
+        (src[a] & 0xFFFF).astype(np.int64) | _KIND_RING,
+    ).astype(np.int32)
+    return code, n_out
+
+
 def pack_dense2(
     lit_len: np.ndarray,
     match_len: np.ndarray,
@@ -60,15 +105,19 @@ def pack_dense2(
     chain_ranges: list | None = None,
 ) -> DensePack2:
     """Pack sequence-table ranges (one per independent chain) into
-    per-byte routing codes with the native resolver (JAX-free copy of
-    ``lz4tpu.device.mxu2.pack_dense2``, native path only)."""
-    native = native_engine()
+    per-byte routing codes (JAX-free copy of
+    ``lz4tpu.device.mxu2.pack_dense2``): the native resolver when the
+    engine is there, :func:`_pack_chain` in numpy otherwise, with equal
+    codes."""
+    from .. import native
+
     if chain_ranges is None:
         chain_ranges = [(0, lit_len.size)]
     ll = np.ascontiguousarray(lit_len, np.int32)
     ls = np.ascontiguousarray(lit_src, np.int32)
     ml = np.ascontiguousarray(match_len, np.int32)
     mo = np.ascontiguousarray(match_off, np.int32)
+    use_native = native.available()
     sizes64 = ll.astype(np.int64) + ml
     chain_outs = [int(sizes64[lo:hi].sum()) for lo, hi in chain_ranges]
     chain_subs = [-(-n // SUB) if n else 0 for n in chain_outs]
@@ -91,10 +140,13 @@ def pack_dense2(
         if n_out == 0:
             out_spans.append((c, sub_base, sub_base, 0))
             continue
-        native.pack_dense2_chain(
-            buf, ll[lo:hi], ls[lo:hi], ml[lo:hi], mo[lo:hi],
-            out=flat[sub_base * SUB:],
-        )
+        dst = flat[sub_base * SUB:]
+        if use_native:
+            native.pack_dense2_chain(
+                buf, ll[lo:hi], ls[lo:hi], ml[lo:hi], mo[lo:hi], out=dst)
+        else:
+            dst[:n_out] = _pack_chain(
+                ll[lo:hi], ls[lo:hi], ml[lo:hi], mo[lo:hi], buf)[0]
         n_sub_c = chain_subs[c]
         scal[sub_base:sub_base + n_sub_c, 0] = (
             (np.arange(n_sub_c, dtype=np.int32) * (SUB // ROWB))
@@ -298,3 +350,16 @@ def decode_dense2_rows(pack: DensePack2, device, ring_in=None,
                             segs, ring)
         parts.append(rows)
     return (parts[0] if len(parts) == 1 else torch.cat(parts)), ring
+
+
+def decode_dense2(pack: DensePack2, device="cuda") -> list:
+    """Decode a DensePack2 on ``device`` (``"cuda"`` by default; it
+    raises without CUDA, ``"cpu"`` takes the plain version); returns
+    ``[(chain_id, bytes)]`` as ``lz4tpu.device.mxu2.decode_dense2``
+    does."""
+    from ..pipeline import _resolve_device
+
+    rows, _ring = decode_dense2_rows(pack, _resolve_device(device))
+    flat = rows.cpu().numpy()
+    return [(c, flat[slo * SUB: slo * SUB + out_len].tobytes())
+            for (c, slo, _shi, out_len) in pack.out_spans]

@@ -467,10 +467,12 @@ _SPARSE_MAX_SEQS = 512
 # would hold multi-GB host/device transients; beyond the cap the part-wise
 # host-pack engine (mxu2) takes over.
 _FUSED_MAX_CHAIN_OUT = 64 << 20
-# Chain-size cap for the dense packer: the native resolver's host
+# Chain-size caps for the dense packer: the native resolver's host
 # transient is the 4 B/byte code array (device memory stays bounded by
-# part-wise launches, mxu2.PART_SUBS).
+# part-wise launches, mxu2.PART_SUBS); the numpy resolver's pointer
+# doubling needs ~40 B/byte.
 _DENSE_MAX_CHAIN_OUT = 1 << 30
+_DENSE_MAX_CHAIN_OUT_NUMPY = 1 << 28
 
 
 def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
@@ -478,14 +480,20 @@ def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
                 engine: str = "auto") -> DecodePlan:
     """Classify every chain and prepare the fused / mxu2 inputs: the
     plan of ``lz4tpu.pipeline.plan_decode`` (same engines per chain,
-    same per-chain FusedOverflow isolation).  Chains over
-    ``_DENSE_MAX_CHAIN_OUT`` go to ``plan.other`` (the resolver).
+    same per-chain FusedOverflow isolation).  Chains over the dense
+    packer's cap go to ``plan.other`` (the resolver): the cap is
+    ``_DENSE_MAX_CHAIN_OUT`` with the native engine,
+    ``_DENSE_MAX_CHAIN_OUT_NUMPY`` without it.
 
     ``chains`` restricts planning to a subset (the sharded decode plans
     one mesh entry's share with it); default is every chain of the
     table.  ``engine``: "mxu2" sends fused-class chains to the host-pack
     engine; any other value plans as "auto" (fused first, the mxu2 pack
     for budget overflows), as ``lz4tpu`` does."""
+    from . import native
+
+    dense_cap = (_DENSE_MAX_CHAIN_OUT if native.available()
+                 else _DENSE_MAX_CHAIN_OUT_NUMPY)
     plan = DecodePlan(sparse=[], dense_chains=[], dense_pack=None, other=[])
     dense_cand = []
     dense_ranges = []
@@ -507,7 +515,7 @@ def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
                 if stats is not None:
                     stats.note_engine("sparse", chain)
                 continue
-        if n_out_c > _DENSE_MAX_CHAIN_OUT:
+        if n_out_c > dense_cap:
             plan.other.append(chain)
             if stats is not None:
                 stats.note_engine("resolve", chain)

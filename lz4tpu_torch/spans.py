@@ -152,15 +152,17 @@ def resolve_ring_bytes(
 ) -> np.ndarray:
     """Chain output bytes ``[boundary - nbytes, boundary)`` through the
     native resolver (``native.resolve_window``: an ascending in-window
-    memo and run-amortised chain walks).  The port always has its native
-    engine; :func:`_resolve_ring_bytes_numpy` computes the same bytes
-    and is its differential reference.  A walk past ``work_max`` raises
-    SpanResolveOverflow."""
-    from .device import native_engine
+    memo and run-amortised chain walks), or, where the native engine is
+    absent, :func:`_resolve_ring_bytes_numpy`, which computes the same
+    bytes and is its differential reference.  Either raises
+    SpanResolveOverflow on a walk past ``work_max``."""
+    from . import native
 
-    native = native_engine()
     if starts is None:
         starts = _starts_ext(ll, ml)
+    if not native.available():
+        return _resolve_ring_bytes_numpy(
+            ll, ml, mo, ls, buf, boundary, nbytes, starts, work_max)
     try:
         return native.resolve_window(
             np.ascontiguousarray(ll, np.int32),
@@ -306,13 +308,13 @@ def resolve_rings(ll, ml, mo, ls, buf, boundaries: list[int],
                   starts: np.ndarray | None = None) -> list[np.ndarray]:
     """Boundary windows of several boundaries, resolved on a thread pool
     (the native walk releases the interpreter lock; each boundary costs
-    the same whatever the span's length)."""
-    from .device import native_engine
+    the same whatever the span's length); on one thread without the
+    native engine (the numpy walk holds the lock)."""
+    from . import native
 
-    native = native_engine()
     if starts is None:
         starts = _starts_ext(ll, ml)
-    threads = native.pack_threads()
+    threads = native.pack_threads() if native.available() else 1
     if len(boundaries) > 1 and threads > 1:
         from concurrent.futures import ThreadPoolExecutor
 

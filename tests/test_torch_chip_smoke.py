@@ -83,14 +83,15 @@ def test_kernel_table_names_every_kernel_of_the_port():
                                    "error_phase", "soak_phase",
                                    "small_fetch_phase", "sharded_path",
                                    "sharded_phase", "encode_path",
-                                   "encode_phase", "wheel_phase"])
+                                   "encode_phase", "wheel_phase",
+                                   "numpy_prep_path"])
 def test_main_drives_every_phase(phase):
     smoke = _smoke()
     assert callable(getattr(smoke, phase))
     main_src = (REPO / "chip_smoke.py").read_text().split("def main()")[1]
     assert f"{phase}(" in main_src
     for path in ("ab", "pipelined", "session", "sharded", "encode",
-                 "soak", "wheel"):
+                 "soak", "wheel", "numpy_prep"):
         assert f'paths["{path}"]' in main_src
 
 
@@ -176,6 +177,39 @@ def test_host_decode_refused_catches_the_fallback():
     assert api.decompress_host is real
     with pytest.raises(lt.Lz4Error):
         dist.decompress_sharded(bytes(data), mesh)
+
+
+def test_native_prep_off_refuses_and_restores():
+    """Inside native_prep_off the port plans with its numpy prep (the
+    engine reads as absent) and every native prep, pack and resolve
+    function fails the smoke, also when a caller swallows the failure;
+    on exit all of them are the engine's again."""
+    import numpy as np
+
+    import lz4tpu_torch as lt
+    from lz4tpu_torch import native
+
+    smoke = _smoke()
+    saved = {n: getattr(native, n)
+             for n in ("available",) + smoke.NATIVE_PREP}
+    assert set(smoke.NUMPY_PREP) <= set(smoke.SERVED)
+    blob = smoke.frag_text(np, 200_000, 8192, 3, 8, 11)
+    data = lt.compress(blob)
+    with smoke.native_prep_off():
+        assert not native.available()
+        assert lt.decompress_to_device(data, device="cpu").numpy(
+            ).tobytes() == blob
+    with pytest.raises(smoke.SmokeFailure, match="ran with the engine off"):
+        with smoke.native_prep_off():
+            native.pack_dense2_chain()
+    with pytest.raises(smoke.SmokeFailure, match="reached with the engine"):
+        with smoke.native_prep_off():
+            try:
+                native.resolve_window()
+            except smoke.SmokeFailure:
+                pass
+    assert {n: getattr(native, n) for n in saved} == saved
+    assert native.available()
 
 
 def test_served_corpora_and_last_line_shape():
