@@ -1,0 +1,8 @@
+"""Process CPU ms a traced request, every thread's (getrusage): the
+host's part of an encode (splice, checksum, copies)."""
+
+from lz4bench import readers
+
+
+def read(trace):
+    return readers.host_cpu_ms(trace)
