@@ -26,6 +26,7 @@ from .constants import (
 )
 from .errors import DataCorruption, Lz4Error
 from .stream import Decompressor
+from .trace import span
 from .xxh32 import XXHash32, xxh32
 
 __all__ = ["decompress", "compress", "decompress_host",
@@ -302,82 +303,90 @@ def compress(
     end mark — reference: lz4ada.adb:225-239): 11 bytes less framing
     overhead, which is why the reference's tiny legacy vectors are
     smaller than any modern frame can be.
+
+    Spans: ``encode`` (the request), ``encode.block`` a block and
+    ``encode.checksum`` (the content checksum).
     """
-    data = bytes(data)
-    from .native import compress_block
+    with span("encode"):
+        data = bytes(data)
+        from .native import compress_block
 
-    if backend in ("device", "device-emit"):
-        from .pipeline import _resolve_device
+        if backend in ("device", "device-emit"):
+            from .pipeline import _resolve_device
 
-        device = _resolve_device(device)
-    if backend == "device":
-        from .device.encode import compress_block_device
-    elif backend == "device-emit":
-        from .device.encode import compress_block_device_emit
+            device = _resolve_device(device)
+        if backend == "device":
+            from .device.encode import compress_block_device
+        elif backend == "device-emit":
+            from .device.encode import compress_block_device_emit
 
-    # Search effort per level (lz4-CLI-like): 1-3 shallow chains and no
-    # lazy deferral (speed), 4-9 the full lazy hash chain, >=10 the
-    # exact optimal parse.
-    eff_chain = min(max_chain, 8) if level <= 3 else max_chain
-    eff_lazy = level >= 4
+        # Search effort per level (lz4-CLI-like): 1-3 shallow chains and no
+        # lazy deferral (speed), 4-9 the full lazy hash chain, >=10 the
+        # exact optimal parse.
+        eff_chain = min(max_chain, 8) if level <= 3 else max_chain
+        eff_lazy = level >= 4
 
-    if frame_format == "legacy":
-        from .constants import MAGIC_LEGACY
+        if frame_format == "legacy":
+            from .constants import MAGIC_LEGACY
 
-        out = bytearray(struct.pack("<I", MAGIC_LEGACY))
+            out = bytearray(struct.pack("<I", MAGIC_LEGACY))
+            pos = 0
+            block_max = 8 << 20
+            while pos < len(data):
+                chunk = data[pos:pos + block_max]
+                # legacy blocks are always compressed and independent
+                comp = compress_block(chunk, max_chain=eff_chain,
+                                      optimal=level >= 10, lazy=eff_lazy)
+                out += struct.pack("<I", len(comp))
+                out += comp
+                pos += len(chunk)
+            return bytes(out)
+
+        block_max = _BLOCK_CODE_SIZE[block_max_code]
+        out = bytearray(struct.pack("<I", MAGIC_MODERN))
+        out += _frame_descriptor(
+            len(data) if content_size else None,
+            block_max_code,
+            content_checksum,
+            block_checksum,
+            block_independence,
+        )
         pos = 0
-        block_max = 8 << 20
         while pos < len(data):
             chunk = data[pos:pos + block_max]
-            # legacy blocks are always compressed and independent
-            comp = compress_block(chunk, max_chain=eff_chain,
-                                  optimal=level >= 10, lazy=eff_lazy)
-            out += struct.pack("<I", len(comp))
-            out += comp
+            hist = b"" if block_independence else data[max(0, pos - 65536):pos]
+            with span("encode.block"):
+                if backend == "device":
+                    # match finding on the device (sorted grams), host
+                    # emission
+                    comp = compress_block_device(chunk, hist=hist,
+                                                 device=device)
+                elif backend == "device-emit":
+                    # every match decided on the device; the host only
+                    # splices tokens
+                    comp = compress_block_device_emit(chunk, hist=hist,
+                                                      device=device)
+                else:
+                    comp = compress_block(
+                        chunk, hist=hist, max_chain=eff_chain,
+                        optimal=level >= 10, lazy=eff_lazy,
+                    )
+            if comp and len(comp) < len(chunk):
+                out += struct.pack("<I", len(comp))
+                out += comp
+                blk = comp
+            else:
+                out += struct.pack("<I", len(chunk) | 0x80000000)
+                out += chunk
+                blk = chunk
+            if block_checksum:
+                out += struct.pack("<I", xxh32(blk))
             pos += len(chunk)
+        out += b"\x00\x00\x00\x00"  # end mark
+        if content_checksum:
+            with span("encode.checksum"):
+                out += struct.pack("<I", xxh32(data))
         return bytes(out)
-
-    block_max = _BLOCK_CODE_SIZE[block_max_code]
-    out = bytearray(struct.pack("<I", MAGIC_MODERN))
-    out += _frame_descriptor(
-        len(data) if content_size else None,
-        block_max_code,
-        content_checksum,
-        block_checksum,
-        block_independence,
-    )
-    pos = 0
-    while pos < len(data):
-        chunk = data[pos:pos + block_max]
-        hist = b"" if block_independence else data[max(0, pos - 65536):pos]
-        if backend == "device":
-            # match finding on the device (sorted grams), host emission
-            comp = compress_block_device(chunk, hist=hist, device=device)
-        elif backend == "device-emit":
-            # every match decided on the device; the host only splices
-            # tokens
-            comp = compress_block_device_emit(chunk, hist=hist,
-                                              device=device)
-        else:
-            comp = compress_block(
-                chunk, hist=hist, max_chain=eff_chain,
-                optimal=level >= 10, lazy=eff_lazy,
-            )
-        if comp and len(comp) < len(chunk):
-            out += struct.pack("<I", len(comp))
-            out += comp
-            blk = comp
-        else:
-            out += struct.pack("<I", len(chunk) | 0x80000000)
-            out += chunk
-            blk = chunk
-        if block_checksum:
-            out += struct.pack("<I", xxh32(blk))
-        pos += len(chunk)
-    out += b"\x00\x00\x00\x00"  # end mark
-    if content_checksum:
-        out += struct.pack("<I", xxh32(data))
-    return bytes(out)
 
 
 class Compressor:

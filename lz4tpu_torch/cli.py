@@ -219,10 +219,13 @@ def cmd_compress(args) -> int:
 @contextlib.contextmanager
 def _trace(log_dir: str):
     """torch.profiler over the block (the card's kernels too where there
-    is one), written as a Chrome trace to ``log_dir/trace.json`` however
-    the block ends."""
+    is one), with the program's spans recorded (``lz4tpu_torch.*``
+    ranges beside the card's operations), written as a Chrome trace to
+    ``log_dir/trace.json`` however the block ends."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from .trace import recording
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -231,7 +234,8 @@ def _trace(log_dir: str):
     prof = profile(activities=acts)
     prof.start()
     try:
-        yield
+        with recording():
+            yield
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
@@ -429,7 +433,9 @@ def main(argv=None) -> int:
     pb.add_argument("--stats", action="store_true",
                     help="print DecodeStats counters (device/auto backends)")
     pb.add_argument("--profile", metavar="DIR",
-                    help="write a torch.profiler trace of the run to DIR")
+                    help="write a torch.profiler trace of the run to DIR, "
+                    "the program's spans (lz4tpu_torch.*) beside its "
+                    "operations")
     pb.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)

@@ -9,6 +9,8 @@ import warnings
 import numpy as np
 import torch
 
+from ..trace import count, span
+
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
     """A host array as a tensor on ``device``.
@@ -23,21 +25,28 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     as soon as this returns: the host-side copy into the staging tensor
     is synchronous, and PyTorch's pinned-memory allocator hands a
     staging block out again only after the event of its last copy has
-    passed."""
+    passed.
+
+    Spans ``stage`` and, inside it, ``stage.pin`` (the host's pinned
+    allocation and copy); counter ``h2d_bytes``: the bytes handed in."""
     a = np.ascontiguousarray(a)
     dev = torch.device(device)
-    if a.flags.writeable:
-        host = torch.from_numpy(a)
-    else:
-        with warnings.catch_warnings():
-            warnings.filterwarnings("ignore", "The given NumPy array is not "
-                                    "writable", UserWarning)
+    count("h2d_bytes", a.nbytes)
+    with span("stage"):
+        if a.flags.writeable:
             host = torch.from_numpy(a)
-    if dev.type != "cuda":
-        return host.to(dev)
-    staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-    staged.copy_(host)
-    return staged.to(dev, non_blocking=True)
+        else:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "The given NumPy array is "
+                                        "not writable", UserWarning)
+                host = torch.from_numpy(a)
+        if dev.type != "cuda":
+            return host.to(dev)
+        with span("stage.pin"):
+            staged = torch.empty(host.shape, dtype=host.dtype,
+                                 pin_memory=True)
+            staged.copy_(host)
+        return staged.to(dev, non_blocking=True)
 
 
 _PACK_ALIGN = 256
@@ -50,20 +59,26 @@ def to_device_packed(arrays, device) -> list:
     copies, and handed back as views of the one device buffer.  For the
     small tables of a launch (window indices, scalars, segment tables),
     where a pinned tensor and a copy each cost more than the bytes.  The
-    views share one allocation and are freed together."""
+    views share one allocation and are freed together.  Spans and counter
+    as :func:`to_device`'s."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     dev = torch.device(device)
     if dev.type != "cuda":
         return [to_device(a, dev) for a in arrays]
-    offs, total = [], 0
+    offs, total, handed = [], 0, 0
     for a in arrays:
         offs.append(total)
         total += -(-a.nbytes // _PACK_ALIGN) * _PACK_ALIGN
-    staged = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=True)
-    flat = staged.numpy()
-    for a, off in zip(arrays, offs):
-        flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
-    on_dev = staged.to(dev, non_blocking=True)
+        handed += a.nbytes
+    count("h2d_bytes", handed)
+    with span("stage"):
+        with span("stage.pin"):
+            staged = torch.empty(max(total, 1), dtype=torch.uint8,
+                                 pin_memory=True)
+            flat = staged.numpy()
+            for a, off in zip(arrays, offs):
+                flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        on_dev = staged.to(dev, non_blocking=True)
     return [on_dev[off:off + a.nbytes]
             .view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
             .reshape(a.shape) for a, off in zip(arrays, offs)]

@@ -46,6 +46,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..trace import span
+
 K_CANDS_DEFAULT = 8     # depth of the legacy candidate chain
 _SCAN_BLOCK = 512
 _WINDOW = 65535         # the farthest an LZ4 match may reach back
@@ -408,20 +410,33 @@ def _emit_inputs_device(buf: torch.Tensor, n_real: int, *, n_pad: int):
     (pos + k <= n_real), and :func:`_combine_levels` picks the longest
     level and merges equal runs.  A chosen candidate c < pos shares k
     real bytes with pos, so decisions are byte-equal matches by
-    construction."""
-    g = _gram_words(buf)
-    order = _sort_order(g)
-    ws = [w.gather(-1, order) for w in g]
-    dlev = _level_deltas(ws, order.to(torch.int32))
-    pos = _positions(n_pad, buf.device)
-    lev = [(k, torch.where(pos + k <= n_real, _restore(order, dk), 0))
-           for k, dk in sorted(dlev.items())]
-    return _combine_levels(lev, n_real, n_pad)
+    construction.
+
+    Spans ``encode.grams``, ``encode.sort``, ``encode.levels``,
+    ``encode.restore`` and ``encode.combine``: the host's time to issue
+    each stage's operations (and any wait inside them)."""
+    with span("encode.grams"):
+        g = _gram_words(buf)
+    with span("encode.sort"):
+        order = _sort_order(g)
+    with span("encode.levels"):
+        ws = [w.gather(-1, order) for w in g]
+        dlev = _level_deltas(ws, order.to(torch.int32))
+    with span("encode.restore"):
+        pos = _positions(n_pad, buf.device)
+        lev = [(k, torch.where(pos + k <= n_real, _restore(order, dk), 0))
+               for k, dk in sorted(dlev.items())]
+    with span("encode.combine"):
+        return _combine_levels(lev, n_real, n_pad)
 
 
 def emit_inputs(data: np.ndarray, *, device="cuda"):
     """(emit_len uint16[n], offset uint16[n]) from the device one-sort
-    scheme + run combining (all end-of-buffer masking on the device)."""
+    scheme + run combining (all end-of-buffer masking on the device).
+
+    Spans ``encode.issue`` (the device pass's operations handed to the
+    device) and ``encode.fetch`` (the decisions' copy to the host, which
+    waits for the device)."""
     from ..pipeline import _resolve_device
 
     dev = _resolve_device(device)
@@ -429,8 +444,10 @@ def emit_inputs(data: np.ndarray, *, device="cuda"):
     if n < 16:
         return np.zeros(n, np.uint16), np.zeros(n, np.uint16)
     buf, n, n_pad = _pad(data, dev)
-    elen, eoff = _emit_inputs_device(buf, n, n_pad=n_pad)
-    return elen[:n].cpu().numpy(), eoff[:n].cpu().numpy()
+    with span("encode.issue"):
+        elen, eoff = _emit_inputs_device(buf, n, n_pad=n_pad)
+    with span("encode.fetch"):
+        return elen[:n].cpu().numpy(), eoff[:n].cpu().numpy()
 
 
 def _joined(src, hist) -> tuple[np.ndarray, int, int]:
@@ -455,7 +472,8 @@ def compress_block_device_emit(src, hist: bytes = b"", *,
     if not src_len:
         return b""
     elen, eoff = emit_inputs(joined, device=dev)
-    return native.emit_quantized(joined, hist_len, src_len, elen, eoff)
+    with span("encode.splice"):
+        return native.emit_quantized(joined, hist_len, src_len, elen, eoff)
 
 
 def compress_block_device(

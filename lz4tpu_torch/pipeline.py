@@ -34,14 +34,15 @@ host work while the card decodes this one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
-import time
 
 import numpy as np
 import torch
 
+from . import trace
 from .constants import FOR_ALL, Reservation
 from .device import fused as fu
 from .device import mxu2 as mx
@@ -63,9 +64,10 @@ class DecodeStats:
     """Observability counters for one device-pipeline decode.
 
     Counters and per-stage wall times, exposed via
-    ``decompress_device(..., stats=...)``.  Times are seconds;
-    ``device_s`` includes transfers and the host fetch of
-    device-resident output (which synchronises the device).
+    ``decompress_device(..., stats=...)``.  Times are seconds, each the
+    host's time in the request's ``decode.<stage>`` spans
+    (:mod:`lz4tpu_torch.trace`); ``device_s`` includes transfers and the
+    host fetch of device-resident output (which synchronises the device).
     """
 
     comp_bytes: int = 0
@@ -81,6 +83,12 @@ class DecodeStats:
     plan_s: float = 0.0
     device_s: float = 0.0
     verify_s: float = 0.0
+
+    def read_spans(self, rec, request: int) -> None:
+        """The ``*_s`` fields from ``request``'s spans in ``rec``."""
+        for stage in ("parse", "scan", "plan", "device", "verify"):
+            setattr(self, f"{stage}_s",
+                    rec.seconds(f"decode.{stage}", request))
 
     def note_engine(self, name: str, chain) -> None:
         self.engine_chains[name] = self.engine_chains.get(name, 0) + 1
@@ -142,7 +150,8 @@ def _host_fallback(data, reservation: Reservation) -> bytes:
 
     with _FALLBACKS_LOCK:
         HOST_FALLBACKS += 1
-    return decompress_host(data, reservation)
+    with trace.span("decode.fallback"):
+        return decompress_host(data, reservation)
 
 
 def _oracle_rerun(data: bytes, reservation: Reservation) -> None:
@@ -197,9 +206,10 @@ def _build_seq_table_single(
     blk = frame.blocks[0]
     if blk.comp_off + blk.comp_len > _BATCH_MAX_OUT:
         raise BatchCapacityExceeded(blk.comp_off + blk.comp_len)
-    (status, starts_ext, ll, ls, ml, mo, litpos_ext, lits, total,
-     min_reach, max_off) = native.scan_block_full(
-        buf[blk.comp_off:blk.comp_off + blk.comp_len], blk.comp_off)
+    with trace.span("decode.scan.blocks"):
+        (status, starts_ext, ll, ls, ml, mo, litpos_ext, lits, total,
+         min_reach, max_off) = native.scan_block_full(
+            buf[blk.comp_off:blk.comp_off + blk.comp_len], blk.comp_off)
     if status != native.OK:
         _oracle_rerun(data, reservation)   # always raises
     if min_reach < 0:
@@ -288,16 +298,27 @@ def build_seq_table(
         )
 
     threads = native.pack_threads()
-    if len(comp_blocks) > 1 and threads > 1:
-        from concurrent.futures import ThreadPoolExecutor
+    with trace.span("decode.scan.blocks"):
+        if len(comp_blocks) > 1 and threads > 1:
+            from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(
-            max_workers=min(threads, len(comp_blocks))
-        ) as ex:
-            scans = dict(zip(map(id, comp_blocks),
-                             ex.map(_scan, comp_blocks)))
-    else:
-        scans = {id(blk): _scan(blk) for blk in comp_blocks}
+            with ThreadPoolExecutor(
+                max_workers=min(threads, len(comp_blocks))
+            ) as ex:
+                scans = dict(zip(map(id, comp_blocks),
+                                 ex.map(_scan, comp_blocks)))
+        else:
+            scans = {id(blk): _scan(blk) for blk in comp_blocks}
+    with trace.span("decode.scan.join"):
+        return _join_scans(parsed, scans, reservation, data)
+
+
+def _join_scans(parsed: ParseResult, scans: dict, reservation: Reservation,
+                data) -> SeqTable:
+    """The blocks' scans (``scans``: by ``id`` of the block) joined into
+    one global table in stream order, with the checks that need the
+    global output coordinates."""
+    from . import native
 
     chunks: list[tuple[np.ndarray, ...]] = []
     spans: list[BlockSpan] = []
@@ -708,27 +729,34 @@ def build_device_segments(buf: np.ndarray, table: SeqTable,
     buffer already staged on ``device``, reused by the sparse programs
     and the resolver."""
     dev = torch.device(device)
-    segs: list = []
-    if (plan.sparse or plan.other) and comp_dev is None:
-        comp_dev = to_device(buf, dev)
-    for chain, prog in plan.sparse:
-        n_c = chain.out_hi - chain.out_lo
-        segs.append(
-            (chain.out_lo, sp.decode_sparse_device(prog, comp_dev)[:n_c])
-        )
-    for rows_of, prep, chains, sub in (
-        (mx.decode_dense2_rows, plan.dense_pack, plan.dense_chains, mx.SUB),
-        (fu.decode_fused_rows, plan.fused_prep, plan.fused_chains, fu.SUB),
-    ):
-        if prep is None:
-            continue
-        flat, _ring = rows_of(prep, dev)
-        for chain, (_c, slo, _shi, out_len) in zip(chains, prep.out_spans):
-            segs.append((chain.out_lo, flat[slo * sub: slo * sub + out_len]))
-    for chain in plan.other:
-        segs.append((chain.out_lo,
-                     _resolve_chain(buf, table, chain, comp_dev)))
-    return segs
+    with trace.span("decode.engines"):
+        segs: list = []
+        if (plan.sparse or plan.other) and comp_dev is None:
+            comp_dev = to_device(buf, dev)
+        for chain, prog in plan.sparse:
+            n_c = chain.out_hi - chain.out_lo
+            with trace.span("decode.engine.sparse"):
+                segs.append((chain.out_lo,
+                             sp.decode_sparse_device(prog, comp_dev)[:n_c]))
+        for name, rows_of, prep, chains, sub in (
+            ("decode.engine.dense", mx.decode_dense2_rows, plan.dense_pack,
+             plan.dense_chains, mx.SUB),
+            ("decode.engine.fused", fu.decode_fused_rows, plan.fused_prep,
+             plan.fused_chains, fu.SUB),
+        ):
+            if prep is None:
+                continue
+            with trace.span(name):
+                flat, _ring = rows_of(prep, dev)
+                for chain, (_c, slo, _shi, out_len) in zip(chains,
+                                                           prep.out_spans):
+                    segs.append((chain.out_lo,
+                                 flat[slo * sub: slo * sub + out_len]))
+        for chain in plan.other:
+            with trace.span("decode.engine.resolve"):
+                segs.append((chain.out_lo,
+                             _resolve_chain(buf, table, chain, comp_dev)))
+        return segs
 
 
 def assemble_device_segments(segs: list, n_out: int, device) -> torch.Tensor:
@@ -737,9 +765,10 @@ def assemble_device_segments(segs: list, n_out: int, device) -> torch.Tensor:
     if (len(segs) == 1 and segs[0][0] == 0
             and segs[0][1].shape[0] == n_out):
         return segs[0][1]
-    out = torch.zeros(n_out, dtype=torch.uint8, device=device)
-    for lo, arr in segs:
-        out[lo:lo + arr.shape[0]] = arr
+    with trace.span("decode.assemble"):
+        out = torch.zeros(n_out, dtype=torch.uint8, device=device)
+        for lo, arr in segs:
+            out[lo:lo + arr.shape[0]] = arr
     return out
 
 
@@ -838,18 +867,20 @@ def decompress_to_device(
     overflows, take the monolithic plan as without it.
     """
     dev = _resolve_device(device)
-    try:
-        res = _decompress_to_device_batch(data, reservation, dev, verify,
-                                          pipelined)
-    except Lz4Error:
-        # stream-order fault precedence: the streaming engine
-        # re-derives the diagnostic; if it succeeds (batch-only
-        # structural limitation) stage its bytes instead
-        res = to_device(
-            np.frombuffer(_host_fallback(data, reservation), np.uint8), dev)
-    if out is None:
-        return res
-    return _write_into(res, out)
+    with trace.span("decode"):
+        try:
+            res = _decompress_to_device_batch(data, reservation, dev, verify,
+                                              pipelined)
+        except Lz4Error:
+            # stream-order fault precedence: the streaming engine
+            # re-derives the diagnostic; if it succeeds (batch-only
+            # structural limitation) stage its bytes instead
+            res = to_device(
+                np.frombuffer(_host_fallback(data, reservation), np.uint8),
+                dev)
+        if out is None:
+            return res
+        return _write_into(res, out)
 
 
 def _write_into(res: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -874,10 +905,12 @@ def _decompress_to_device_batch(data, reservation, dev: torch.device,
     buf = np.frombuffer(bytes(data), dtype=np.uint8)
     if buf.size == 0:
         return torch.zeros(0, dtype=torch.uint8, device=dev)
-    parsed = parse_frames(buf, reservation)
+    with trace.span("decode.parse"):
+        parsed = parse_frames(buf, reservation)
     try:
-        table = build_seq_table(buf, parsed, reservation, data,
-                                pooled_cols=True)
+        with trace.span("decode.scan"):
+            table = build_seq_table(buf, parsed, reservation, data,
+                                    pooled_cols=True)
     except BatchCapacityExceeded as e:
         raise ValueError(
             "decompress_to_device: stream decodes past 2**31-1 bytes, "
@@ -897,15 +930,18 @@ def _decompress_to_device_batch(data, reservation, dev: torch.device,
         comp_dev = to_device(buf, dev)
     out_dev = _pipelined_rows(buf, table, dev, pipelined)
     if out_dev is None:
-        segs = build_device_segments(
-            buf, table, plan_decode(buf, parsed, table), dev,
-            comp_dev=comp_dev)
+        with trace.span("decode.plan"):
+            plan = plan_decode(buf, parsed, table)
+        segs = build_device_segments(buf, table, plan, dev,
+                                     comp_dev=comp_dev)
         out_dev = assemble_device_segments(segs, table.n_out, dev)
     if verify == "host":
-        _verify_checksums(buf, parsed, out_dev.cpu().numpy(), table)
+        with trace.span("decode.verify"):
+            _verify_checksums(buf, parsed, out_dev.cpu().numpy(), table)
     elif verify == "device":
-        _verify_checksums_device(buf, parsed, out_dev, table,
-                                 comp_dev=comp_dev)
+        with trace.span("decode.verify"):
+            _verify_checksums_device(buf, parsed, out_dev, table,
+                                     comp_dev=comp_dev)
     return out_dev
 
 
@@ -932,13 +968,21 @@ def decompress_device(
     it).  Any Lz4Error therefore re-derives the diagnostic via the
     streaming host engine, the same contract as decompress_host's
     batch-to-streaming fallback.
+
+    stats: filled in place; its times come from the request's spans,
+    recorded only where ``stats`` is given.
     """
     dev = _resolve_device(device)
-    try:
-        return _decompress_device_batch(data, reservation, engine, dev,
-                                        stats)
-    except Lz4Error:
-        return _host_fallback(data, reservation)
+    with (trace.recording() if stats is not None
+          else contextlib.nullcontext()) as rec, trace.span("decode") as req:
+        try:
+            return _decompress_device_batch(data, reservation, engine, dev,
+                                            stats)
+        except Lz4Error:
+            return _host_fallback(data, reservation)
+        finally:
+            if stats is not None:
+                stats.read_spans(rec, req.request)
 
 
 def _decompress_device_batch(
@@ -951,40 +995,34 @@ def _decompress_device_batch(
     buf = np.frombuffer(bytes(data), dtype=np.uint8)
     if buf.size == 0:
         return b""
-    t0 = time.perf_counter()
-    parsed = parse_frames(buf, reservation)
-    t1 = time.perf_counter()
+    with trace.span("decode.parse"):
+        parsed = parse_frames(buf, reservation)
     try:
-        table = build_seq_table(buf, parsed, reservation, data,
-                                pooled_cols=True)
+        with trace.span("decode.scan"):
+            table = build_seq_table(buf, parsed, reservation, data,
+                                    pooled_cols=True)
     except BatchCapacityExceeded:
         # stream decodes past int32 coordinates: the size-unbounded
         # streaming host engine takes over
         return _host_fallback(data, reservation)
-    t2 = time.perf_counter()
     if stats is not None:
         stats.comp_bytes = buf.size
         stats.out_bytes = table.n_out
         stats.n_frames = len(parsed.frames)
         stats.n_blocks = sum(len(f.blocks) for f in parsed.frames)
         stats.n_seqs = int(table.out_start.size)
-        stats.parse_s = t1 - t0
-        stats.scan_s = t2 - t1
     if table.n_out == 0:
         return b""
 
     if engine == "auto":
-        plan = plan_decode(buf, parsed, table, stats)
-        t3 = time.perf_counter()
+        with trace.span("decode.plan"):
+            plan = plan_decode(buf, parsed, table, stats)
         # the fetch to the host inside synchronises the device, so the
-        # host clock below covers the device work
-        out_np = _decode_via_plan(buf, parsed, table, plan, dev)
-        t4 = time.perf_counter()
-        _verify_checksums(buf, parsed, out_np, table)
-        if stats is not None:
-            stats.plan_s = t3 - t2
-            stats.device_s = t4 - t3
-            stats.verify_s = time.perf_counter() - t4
+        # span covers the device work
+        with trace.span("decode.device"):
+            out_np = _decode_via_plan(buf, parsed, table, plan, dev)
+        with trace.span("decode.verify"):
+            _verify_checksums(buf, parsed, out_np, table)
         return out_np.tobytes()
     if engine == "pallas":
         out_np = _decode_pallas(buf, parsed, table, dev)

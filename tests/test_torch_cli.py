@@ -9,6 +9,7 @@ port's bench runs its device, sharded and pipeline backends on the CPU
 """
 
 import io
+import json
 import re
 import struct
 import subprocess
@@ -211,6 +212,20 @@ def test_bench_profile(files, tmp_path):
         assert rc == rc_want and out == b""
         assert err.rstrip().endswith(f"profiler trace written to {d}")
         assert (d / "trace.json").stat().st_size > 0
+
+
+def test_bench_profile_carries_spans(files, tmp_path):
+    """The port's --profile trace holds its own spans beside the
+    operations (a device decode's token scan among them)."""
+    d = tmp_path / "trace"
+    rc, _out, _err = _run(tcli, ["lz4-bench", "--reps", "1", "--backend",
+                                 "device", "--profile", str(d),
+                                 files["frame"]])
+    assert rc == 0
+    names = {e.get("name") for e in
+             json.loads((d / "trace.json").read_text())["traceEvents"]}
+    assert {"lz4tpu_torch.decode", "lz4tpu_torch.decode.scan",
+            "lz4tpu_torch.decode.scan.blocks"} <= names
 
 
 @pytest.mark.parametrize("entry,argv,stdin", [
