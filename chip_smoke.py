@@ -49,7 +49,8 @@ g++:  ``python3 chip_smoke.py``.  It
    temporary directory, and one process with only that tree on its
    path building the kernels into the tree's ``_build/`` and decoding
    the main path's corpora on the card (every decode kernel launched,
-   the device encoder's frame decoded back, no host fallback, every
+   the device encoder's frames of ``backend="device"`` and
+   ``"device-emit"`` decoded back, no host fallback, every
    output equal to the installed host engine's), then the installed
    ``lz4tpu-bench-torch``;
 6. checks that corrupted frames raise what
@@ -101,6 +102,8 @@ KERNELS = {      # name -> (source, TPU kernel it replaces)
     "segment_decode": ("lz4tpu_torch/csrc/segment.cu",
                        "lz4tpu/device/pallas_decode.py:162"),
     "mxu2_route_ab": ("lz4tpu_torch/csrc/mxu2_ab.cu", "exp/ab.py:34"),
+    "emit_levels": ("lz4tpu_torch/csrc/emit_levels.cu",
+                    "lz4tpu/device/encode.py:367"),
 }
 ENGINE_KERNELS = {"fused": ("fused_expand", "fused_route"),
                   "dense": ("mxu2_route",)}
@@ -946,6 +949,26 @@ def kernel_phase(torch, np, lt, tpl, corp, words, dev, name_card, probe):
     record("segment_decode", err, ms, plain_ms, bound, "bytes", shape,
            plain_shape=plain_shape)
     rows["segment_decode"]["chain_ms"] = chain_ms
+
+    # H8 on the encode cell's block: words32m's first 4 MiB and 64 KiB
+    from lz4tpu_torch.device import emit_levels as el
+    from lz4tpu_torch.device import encode as enc
+
+    buf, _n, n_pad = enc._pad(np.frombuffer(words[1][:BLOCK + HISTORY],
+                                            np.uint8), dev)
+    g = enc._gram_words(buf)
+    order = enc._sort_order(g)
+    p_s = order.to(torch.int32)
+    ws = [w.gather(-1, order) for w in g]
+    got, want = el.emit_levels(buf, p_s), enc._level_deltas(ws, p_s)
+    torch.cuda.synchronize()
+    # bytes: the block and the positions read once, 8 int32 a position out
+    record("emit_levels", max(max_abs_err(torch, got[k], want[k])
+                              for k in want),
+           cuda_ms(torch, lambda: el.emit_levels(buf, p_s), 20),
+           cuda_ms(torch, lambda: enc._level_deltas(ws, p_s), 3),
+           1e3 * (n_pad + 4 * n_pad + 32 * n_pad) / HBM_BYTES_PER_S,
+           "bytes", f"words32m's first block, n_pad {n_pad}")
     return rows
 
 
@@ -2157,6 +2180,7 @@ def encode_phase(torch, np, lt, corp, dev, name_card):
     memory, and end-to-end encode rates on frag32m; compress_sharded's
     peak memory on 16 blocks."""
     from lz4tpu_torch import dist, native
+    from lz4tpu_torch.device import emit_levels as el
     from lz4tpu_torch.device import encode as enc
     from lz4tpu_torch.device import to_device
 
@@ -2194,6 +2218,10 @@ def encode_phase(torch, np, lt, corp, dev, name_card):
     ws = [w.gather(-1, order) for w in g]
     p_s = order.to(torch.int32)
     dlev = enc._level_deltas(ws, p_s)
+    h8 = el.emit_levels(buf, p_s)
+    need(all(torch.equal(h8[k], dk) for k, dk in dlev.items()),
+         "emit_levels differs from _level_deltas on frag32m's block")
+    del h8
     lev = [(k, torch.where(pos + k <= n, enc._restore(order, dk), 0))
            for k, dk in sorted(dlev.items())]
     elen, eoff = enc._emit_inputs_device(buf, n, n_pad=n_pad)
@@ -2203,6 +2231,8 @@ def encode_phase(torch, np, lt, corp, dev, name_card):
                                                    for w in g])(
             enc._sort_order(g)), reps),
         "scans": cuda_ms(torch, lambda: enc._level_deltas(ws, p_s), 3),
+        "levels (H8)": cuda_ms(torch, lambda: el.emit_levels(buf, p_s),
+                               reps),
         "restore": cuda_ms(torch, lambda: [
             torch.where(pos + k <= n, enc._restore(order, dk), 0)
             for k, dk in sorted(dlev.items())], reps),
@@ -2356,12 +2386,14 @@ for name, how in json.loads(sys.argv[4]):
     elif how == "pallas":
         out = lt.decompress_device(data, engine="pallas")
     else:                               # encode on the card, decode back
-        frame = lt.compress(data, backend="device")
-        t = lt.decompress_to_device(frame, verify="device")
-        if t.cpu().numpy().tobytes() != data:
-            raise SystemExit(f"{name}: the device encoder's frame does "
-                             "not decode back on the card")
-        out, data = data, frame
+        frames = [lt.compress(data, backend="device"),
+                  lt.compress(data, backend="device-emit")]
+        for frame in frames:
+            t = lt.decompress_to_device(frame, verify="device")
+            if t.cpu().numpy().tobytes() != data:
+                raise SystemExit(f"{name}: the device encoder's frame does "
+                                 "not decode back on the card")
+        out, data = data, frames[0]
     ms = 1e3 * (time.perf_counter() - s)
     if out != lt.decompress_host(data):
         raise SystemExit(f"{name} ({how}): differs from the host engine")
@@ -2389,7 +2421,7 @@ WHEEL_CALLS = (
     ("z9m.lz4", "to_device", ("block_fill",)),
     ("frag32m-bsum64k.lz4", "to_device", ("xxh32_blocks",)),
     ("indep2m.lz4", "pallas", ("segment_decode",)),
-    ("frag32m-block2.bin", "encode", ()),
+    ("frag32m-block2.bin", "encode", ("emit_levels",)),
 )
 
 

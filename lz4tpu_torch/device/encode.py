@@ -5,7 +5,10 @@ The search, the costly part of LZ4 encoding, runs as tensor operations on
 the device; the byte-granular emission (verify, extend, token stream)
 stays on the host in the native engine.  The JAX package computes these
 functions outside any kernel too (XLA, no Pallas), so their first form
-here is PyTorch ops: sorts, rolls, gathers and scans.
+here is PyTorch ops: sorts, rolls, gathers and scans.  On the card the
+one-sort scheme's prefix levels are one hand-written kernel (H8,
+``device/emit_levels.py``); :func:`_level_deltas` stays as its plain
+version, which CPU tensors run.
 
 1. grams: g(p) = the 4 bytes at p as one signed int32 word, read
    circularly over the padded buffer (words wrap as int32 does).
@@ -26,7 +29,7 @@ Three passes are built on this:
 * :func:`emit_inputs`: every match decided on the device (one 9-key sort
   by the 32-byte prefix, segmented scans per prefix level, run
   combining), again 4 B a payload byte; the host only splices tokens
-  (``backend="device-emit"``).
+  (``backend="device-emit"``).  The scans are kernel H8 on the card.
 
 ``jax.lax.sort`` with several keys is lexicographic and the port's sort
 is not: :func:`_sort_order` packs two int32 keys into one int64 that
@@ -46,7 +49,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..trace import span
+from ..trace import count, span
+from .emit_levels import emit_levels
 
 K_CANDS_DEFAULT = 8     # depth of the legacy candidate chain
 _SCAN_BLOCK = 512
@@ -412,16 +416,24 @@ def _emit_inputs_device(buf: torch.Tensor, n_real: int, *, n_pad: int):
     real bytes with pos, so decisions are byte-equal matches by
     construction.
 
-    Spans ``encode.grams``, ``encode.sort``, ``encode.levels``,
-    ``encode.restore`` and ``encode.combine``: the host's time to issue
-    each stage's operations (and any wait inside them)."""
+    On a CUDA buffer the levels are one launch of kernel H8
+    (:func:`.emit_levels.emit_levels`, counted once a block as
+    ``encode.levels.kernel``); on a CPU one :func:`_level_deltas`, its
+    plain version.  Spans ``encode.grams``, ``encode.sort``,
+    ``encode.levels``, ``encode.restore`` and ``encode.combine``: the
+    host's time to issue each stage's operations (and any wait inside
+    them)."""
     with span("encode.grams"):
         g = _gram_words(buf)
     with span("encode.sort"):
         order = _sort_order(g)
     with span("encode.levels"):
-        ws = [w.gather(-1, order) for w in g]
-        dlev = _level_deltas(ws, order.to(torch.int32))
+        p_s = order.to(torch.int32)
+        if buf.is_cuda:
+            dlev = emit_levels(buf, p_s)
+            count("encode.levels.kernel", 1)
+        else:
+            dlev = _level_deltas([w.gather(-1, order) for w in g], p_s)
     with span("encode.restore"):
         pos = _positions(n_pad, buf.device)
         lev = [(k, torch.where(pos + k <= n_real, _restore(order, dk), 0))

@@ -23,7 +23,9 @@ stats=)``, ``lz4-bench --stats``) reads the ``decode.*`` spans of its
 request; ``lz4-bench --profile`` writes them all into its Chrome trace;
 the benchmark's program-span readers (``lz4bench/program_trace.py``)
 read the spans from the profiler's events and the ``h2d_bytes`` counter
-from a recording.
+from a recording.  The counter ``encode.levels.kernel`` (one a block
+whose prefix levels kernel H8 decided) is read from a recording, beside
+the blocks encoded, by whoever asks how often the kernel took the block.
 """
 
 from __future__ import annotations

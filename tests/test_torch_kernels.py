@@ -717,8 +717,8 @@ def test_sharded_decode_on_card_equals_cpu(cuda, entries):
 
 
 # ---------------------------------------------------------------------------
-# the device encoder: torch ops, no kernel of ours; the card's bytes must
-# be the CPU's
+# the device encoder: torch ops and H8 (its prefix levels); the card's
+# bytes must be the CPU's
 # ---------------------------------------------------------------------------
 
 def _encode_payload() -> bytes:
@@ -763,3 +763,60 @@ def test_compress_sharded_on_the_card(cuda, entries):
                                         block_max_code=4)
     assert got == lz4tpu_torch.compress(blob, backend="device",
                                         device="cpu", block_max_code=4)
+
+
+def _levels_data(kind: str) -> bytes:
+    n = (4 << 20) + 65536       # a default block and its history
+    rng = np.random.default_rng(43)
+    return {"words": lambda: _words_text(n),
+            "zeros": lambda: bytes(n),
+            "urandom": lambda: rng.integers(0, 256, n,
+                                            dtype=np.uint8).tobytes(),
+            "frag": lambda: _frag_text(n, 44),
+            "n1024": lambda: _frag_text(1000, 45),
+            "n5k": lambda: _words_text(5 * 1024)}[kind]()
+
+
+@pytest.mark.parametrize("kind", ["words", "zeros", "urandom", "frag",
+                                  "n1024", "n5k"])
+def test_emit_levels_kernel(cuda, kind):
+    """H8 against the plain levels on the same sorted entries: the
+    encode cell's shape (n_pad 4,259,840) of word text, zeros (one group
+    over every tile at every level), urandom (no group above level 4),
+    fragment text; n_pad 1024 and 5 x 1024 (under a tile, and not a
+    multiple of one)."""
+    from lz4tpu_torch.device import emit_levels as el
+    from lz4tpu_torch.device import encode as enc
+
+    buf, _n, n_pad = enc._pad(np.frombuffer(_levels_data(kind), np.uint8),
+                              cuda)
+    g = enc._gram_words(buf)
+    order = enc._sort_order(g)
+    p_s = order.to(torch.int32)
+    want = enc._level_deltas([w.gather(-1, order) for w in g], p_s)
+    n0 = _kernels.LAUNCHES["emit_levels"]
+    got = el.emit_levels(buf, p_s)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["emit_levels"] == n0 + 1
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].shape == (n_pad,) and got[k].dtype == torch.int32
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("kw", [{"block_max_code": 4},
+                                {"block_max_code": 4,
+                                 "block_independence": True}])
+def test_device_emit_frames_launch_h8_once_a_block(cuda, kw):
+    from lz4tpu_torch import trace
+
+    blob = _encode_payload()
+    blocks = -(-len(blob) // 65536)
+    n0 = _kernels.LAUNCHES["emit_levels"]
+    with trace.recording() as rec:
+        got = lz4tpu_torch.compress(blob, backend="device-emit",
+                                    device="cuda", **kw)
+    assert _kernels.LAUNCHES["emit_levels"] - n0 == blocks
+    assert rec.counters["encode.levels.kernel"] == blocks
+    assert got == lz4tpu_torch.compress(blob, backend="device-emit",
+                                        device="cpu", **kw)
