@@ -130,6 +130,9 @@ def parse_frames(
         _need_header(buf, pos, 4, policy)
         magic = _le32(buf, pos)
         fid = len(frames)
+        if frames and frames[-1].kind == "legacy" and _cut_after_legacy(
+                buf, pos, magic):
+            break
         if magic == MAGIC_MODERN:
             frame, pos = _parse_modern(buf, pos, fid, policy)
         elif magic == MAGIC_LEGACY:
@@ -163,6 +166,19 @@ def parse_frames(
         frames.append(frame)
         blocks.extend(frame.blocks)
     return ParseResult(frames=frames, blocks=blocks)
+
+
+def _cut_after_legacy(buf: np.ndarray, pos: int, magic: int) -> bool:
+    """Whether input ending inside the next frame's header at ``pos`` ends
+    the stream cleanly after a legacy frame.  The streaming core reads
+    the magic that ends a legacy frame as the next header and keeps the
+    legacy frame's end of frame MAYBE until that header's FLG and BD
+    bytes (modern) or its size word (skippable) are read: input that
+    ends before them decodes without an error."""
+    left = buf.size - pos - 4
+    if magic == MAGIC_MODERN:
+        return left < 2
+    return SKIPPABLE_LO <= magic <= SKIPPABLE_HI and left < 4
 
 
 def _effective_reservation(

@@ -359,8 +359,16 @@ def resolve_window(
 
 def pack_threads() -> int:
     """Worker threads for the host-parallel stages (per-block token
-    scan and the provenance resolver): the LZ4TPU_PACK_THREADS env var
-    when it parses as a positive integer, else the CPU count."""
+    scan, the fused prep, the mxu2 pack and the provenance resolver):
+    the LZ4TPU_PACK_THREADS env var when it parses as a positive
+    integer, else 1.
+
+    One by default: on an 8-core H100 host, the host prep (scan and
+    plan) of 336 frames of 64 KiB blocks took 1.4-1.8 s on one thread
+    and 4.1-6.4 s on eight, with ten times the system CPU, and the
+    eight-thread time varied more between processes; 64 MiB of zeros
+    in 4 MiB blocks prepared faster on one thread too.  The work items
+    are small beside a thread's hand-off cost."""
     import os
 
     env = os.environ.get("LZ4TPU_PACK_THREADS")
@@ -369,7 +377,7 @@ def pack_threads() -> int:
             return max(1, int(env.strip()))
         except ValueError:
             pass  # a tuning knob must not take down the decode path
-    return os.cpu_count() or 1
+    return 1
 
 
 def pack_dense2_chain(

@@ -565,16 +565,18 @@ def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
                 # budget overflows are a per-chain property (patch
                 # density, window pressure): isolate the offenders
                 ok = []
-                for c in fused_cand:
-                    try:
-                        fu.prep_fused(
-                            table.lit_len, table.match_len,
-                            table.match_off, table.lit_src, buf,
-                            chain_ranges=[(c.seq_lo, c.seq_hi)],
-                        )
-                        ok.append(c)
-                    except fu.FusedOverflow:
-                        continue
+                trace.count("decode.fused.isolated", len(fused_cand))
+                with trace.span("decode.plan.isolate"):
+                    for c in fused_cand:
+                        try:
+                            fu.prep_fused(
+                                table.lit_len, table.match_len,
+                                table.match_off, table.lit_src, buf,
+                                chain_ranges=[(c.seq_lo, c.seq_hi)],
+                            )
+                            ok.append(c)
+                        except fu.FusedOverflow:
+                            continue
                 if ok:
                     _try(ok)
                     fused_cand = [c for c in fused_cand if c not in ok]
@@ -592,7 +594,22 @@ def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
             table.lit_len, table.match_len, table.match_off,
             table.lit_src, buf, chain_ranges=dense_ranges,
         )
+    if trace.active():
+        for name, planned in (("sparse", plan.sparse),
+                              ("fused", plan.fused_chains),
+                              ("dense", plan.dense_chains),
+                              ("resolve", plan.other)):
+            trace.count(f"decode.chains.{name}", len(planned))
     return plan
+
+
+def count_parsed(parsed: ParseResult) -> None:
+    """The counters ``decode.frames`` and ``decode.blocks`` of one
+    request's parse, where a recording is open."""
+    if trace.active():
+        trace.count("decode.frames", len(parsed.frames))
+        trace.count("decode.blocks",
+                    sum(len(f.blocks) for f in parsed.frames))
 
 
 def _verify_checksums_device(
@@ -907,6 +924,7 @@ def _decompress_to_device_batch(data, reservation, dev: torch.device,
         return torch.zeros(0, dtype=torch.uint8, device=dev)
     with trace.span("decode.parse"):
         parsed = parse_frames(buf, reservation)
+    count_parsed(parsed)
     try:
         with trace.span("decode.scan"):
             table = build_seq_table(buf, parsed, reservation, data,
@@ -997,6 +1015,7 @@ def _decompress_device_batch(
         return b""
     with trace.span("decode.parse"):
         parsed = parse_frames(buf, reservation)
+    count_parsed(parsed)
     try:
         with trace.span("decode.scan"):
             table = build_seq_table(buf, parsed, reservation, data,

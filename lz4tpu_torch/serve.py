@@ -315,6 +315,7 @@ class DecodeSession:
             ticket._finish(buf, None, None, [])
             return
         parsed = pl.parse_frames(buf, self.reservation)
+        pl.count_parsed(parsed)
         try:
             table = pl.build_seq_table(buf, parsed, self.reservation,
                                        data, pooled_cols=True)

@@ -23,9 +23,16 @@ stats=)``, ``lz4-bench --stats``) reads the ``decode.*`` spans of its
 request; ``lz4-bench --profile`` writes them all into its Chrome trace;
 the benchmark's program-span readers (``lz4bench/program_trace.py``)
 read the spans from the profiler's events and the ``h2d_bytes`` counter
-from a recording.  The counter ``encode.levels.kernel`` (one a block
-whose prefix levels kernel H8 decided) is read from a recording, beside
-the blocks encoded, by whoever asks how often the kernel took the block.
+from a recording.  The decode's counters, each a request, say what it
+was handed and how it was planned: ``decode.frames`` and
+``decode.blocks`` (parsed), ``decode.chains.sparse``, ``.fused``,
+``.dense`` and ``.resolve`` (chains planned onto each engine) and
+``decode.fused.isolated`` (chains prepared again one by one, inside the
+span ``decode.plan.isolate``, after the fused prep of them all together
+overflowed), read from a recording; no benchmark metric reads them
+yet.  The counter ``encode.levels.kernel`` (one a block whose prefix
+levels kernel H8 decided) is read from a recording, beside the blocks
+encoded, by whoever asks how often the kernel took the block.
 """
 
 from __future__ import annotations
@@ -122,6 +129,12 @@ def span(name: str):
     if not recs:
         return _NULL
     return _Open(recs, name)
+
+
+def active() -> bool:
+    """Whether a recording is open: a caller whose count takes work to
+    compute asks first, so that the count costs nothing outside one."""
+    return bool(_RECORDERS)
 
 
 def count(name: str, n: int) -> None:

@@ -296,6 +296,49 @@ def test_fault_legacy_block_past_the_end(seed, which):
         jframe.parse_frames(np.frombuffer(frame, np.uint8), rnd.reservation)
 
 
+def test_fault_header_cut_after_a_legacy_frame():
+    """A legacy frame, then a skippable frame cut inside its size word
+    (seed 2926143301's truncated frame): the streaming engine's end of
+    frame stays the legacy frame's MAYBE until the next header's size
+    word (or a modern header's FLG and BD) is read, so the input decodes
+    without an error; the batch parse raised DataCorruption, so every
+    device path served it through the host fallback.  The JAX package's
+    batch parse still raises."""
+    seed = 2926143301
+    rnd = soak.draw_round(np.random.default_rng(seed), seed, 65536)
+    frame = rnd.truncated
+    assert rnd.opts.get("frame_format") == "legacy" and rnd.opts["skippable"]
+    assert len(frame) == len(rnd.first) + 6
+    want = _every_path_equals_the_host(frame, rnd.reservation)
+    assert want == ("ok", rnd.data)
+    assert [f.kind for f in lt.frame.parse_frames(frame, lt.FOR_ALL).frames] \
+        == ["legacy"]
+    assert _jax_outcome(lambda f: lz4tpu.decompress_host(
+        f, rnd.reservation), frame) == want
+    with pytest.raises(lz4tpu.errors.DataCorruption,
+                       match="Input ended in the middle of a frame"):
+        jframe.parse_frames(np.frombuffer(frame, np.uint8), rnd.reservation)
+
+
+@pytest.mark.parametrize("tail,ok", [
+    (b"\x04\x22\x4d\x18", True), (b"\x04\x22\x4d\x18\x64", True),
+    (b"\x04\x22\x4d\x18\x64\x40", False),
+    (b"\x50\x2a\x4d\x18\x01\x00\x00", True),
+    (b"\x50\x2a\x4d\x18\x01\x00\x00\x00", False),
+    (b"\x50\x2a\x4d\x18\x00\x00\x00\x00", True)])
+def test_header_cut_after_a_legacy_frame_as_the_host(tail, ok):
+    """After a legacy frame, input that ends inside the next header decodes
+    as the streaming engine decodes it: cleanly before a modern header's
+    FLG and BD or a skippable size word, else as a frame cut short."""
+    data = bytes(range(64))
+    frame = lt.compress(data, frame_format="legacy") + tail
+    want = _every_path_equals_the_host(frame, lt.FOR_ALL)
+    assert (want == ("ok", data)) is ok
+    if not ok:
+        assert want == ("err", "DataCorruption",
+                        "Input ended in the middle of a frame.")
+
+
 def test_fault_session_fault_precedence():
     """A flipped byte whose batch diagnostic differs from the streaming
     engine's (the buffer size in DataCorruption): the session raised the
