@@ -104,9 +104,12 @@ KERNELS = {      # name -> (source, TPU kernel it replaces)
     "mxu2_route_ab": ("lz4tpu_torch/csrc/mxu2_ab.cu", "exp/ab.py:34"),
     "emit_levels": ("lz4tpu_torch/csrc/emit_levels.cu",
                     "lz4tpu/device/encode.py:367"),
+    # no TPU kernel: the host packer moved onto the card
+    "dense_codes": ("lz4tpu_torch/csrc/dense_codes.cu",
+                    "lz4tpu/device/mxu2.py:71"),
 }
 ENGINE_KERNELS = {"fused": ("fused_expand", "fused_route"),
-                  "dense": ("mxu2_route",)}
+                  "dense": ("mxu2_route", "dense_codes")}
 SERVED = ("z9m", "b3.5m", "frag1m", "src1m", "frag32m", "frag32m-indep",
           "frag2m-bsum", "frag2m-legacy")
 
@@ -323,21 +326,54 @@ def fill_shapes(np, lt, tpl, corp):
 
 
 def route_shapes(np, lt, tpl, corp, words):
-    """What H3 is timed on, as ``(name, pack)``: src1m (one dense chain of
-    512 substeps) and words32m (one of 16,384)."""
-    out = []
+    """What H3 is timed on, as ``(name, pack)`` with host codes: src1m
+    (one dense chain of 512 substeps) and words32m (one of 16,384)."""
+    return [(name, pack.packed())
+            for name, pack in dense_shapes(np, lt, tpl, corp, words)]
+
+
+def dense_shapes(np, lt, tpl, corp, words):
+    """src1m's and words32m's packs as the planner leaves them, deferred
+    (H9 builds their codes), as ``(name, pack)``.  Each pack reads its
+    table's pooled columns: use it before the next scan on this thread."""
     for name, data in (("src1m", corp["src1m"][0]), ("words32m", words[0])):
         plan = plan_of(np, lt, tpl, data)[3]
         need(plan.dense_pack is not None and len(plan.dense_chains) == 1,
              f"{name} did not plan as one mxu2 chain")
-        out.append((f"{name}, {plan.dense_pack.n_sub} substeps",
-                    plan.dense_pack))
-    return out
+        yield f"{name}, {plan.dense_pack.n_sub} substeps", plan.dense_pack
 
 
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
+
+def lineitem_pack(np, lt, tpl, n=96 << 20, seed=2**31 + 41):
+    """The planner's deferred mxu2 pack of ``n`` bytes of TPC-H lineitem
+    record batches, one frame a buffer at the ``arrow-lz4frame``
+    configuration's flags (``lz4bench``'s corpus and frozen encoder, the
+    ``tpch-lineitem-1m`` cell's inputs cut to ``n``): over a hundred
+    chains, each ending mid-substep, more than ``mxu2.PART_SUBS``
+    substeps in all.  The pack reads its table's pooled columns: use it
+    before the next scan on this thread."""
+    import concurrent.futures
+    import json
+
+    from lz4bench import encoder, harness
+
+    config = json.loads((HERE / "lz4bench/configs/arrow-lz4frame.json")
+                        .read_text())
+    entry = harness._load_file(harness.HERE / "entries" / "decode_frames.py",
+                               "entry")
+    raw = harness.corpus("tpch_lineitem").make(
+        n, harness.generator(seed, "tpch_lineitem", 0))
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        data = b"".join(pool.map(
+            lambda b: encoder.compress_frame(b, config["frame"],
+                                             config["level"], workers=1),
+            entry.split(raw)))
+    plan = plan_of(np, lt, tpl, data)[3]
+    return plan.dense_pack, len(plan.dense_chains)
+
 
 def cuda_ms(torch, fn, reps):
     """Median of CUDA-event timings of fn() after one warm-up call.
@@ -671,6 +707,101 @@ def kernel_phase(torch, np, lt, tpl, corp, words, dev, name_card, probe):
     print(f"[kernel] mxu2_route: equal to plain on 16 independent chains "
           f"({pack.n_sub} substeps), zero and seeded ring, one launch and "
           "parts of 37 substeps carrying the ring", flush=True)
+
+    # H9 on the same two chains: against its plain version and the host
+    # packer, and timed; bound: the columns read once, the codes written
+    # once
+    by_shape, err = {}, 0
+    for name, pack in dense_shapes(np, lt, tpl, corp, words):
+        n = pack.n_sub
+        host = pack.packed().code
+        staged = mx.stage_dense_codes(pack, dev)
+        got = mx.dense_codes(*staged, 0, n)
+        mx.raise_on_fault(staged[3])
+        want = mx.dense_codes_plain(*staged[:3], 0, n)
+        torch.cuda.synchronize()
+        need(np.array_equal(got.cpu().numpy(), host),
+             f"dense_codes: {name} differs from the host packer")
+        err = max(err, max_abs_err(torch, got, want))
+        by_shape[name] = {
+            "ms": cuda_ms(torch, lambda: mx.dense_codes(*staged, 0, n),
+                         20),
+            "bound_ms": 1e3 * nbytes(staged[0], got) / HBM_BYTES_PER_S}
+        if name.startswith("src1m"):
+            by_shape[name]["plain_ms"] = cuda_ms(
+                torch, lambda: mx.dense_codes_plain(*staged[:3], 0, n), 2)
+            src_shape = name
+        print(f"[kernel] dense_codes: equal to plain and to the host packer "
+              f"at {name}: kernel {by_shape[name]['ms']:.4f} ms, bound "
+              f"{by_shape[name]['bound_ms']:.4f} ms (bytes: "
+              f"{staged[0].shape[1]} sequences) [{name_card}]", flush=True)
+        del staged, got, want, host
+    # H9 on many chains in one launch: the tpch-lineitem-1m cell's
+    # shape, parts of mxu2.PART_SUBS substeps whose blocks find their
+    # chain among a hundred and more, chains that end mid-substep
+    pack, n_chains = lineitem_pack(np, lt, tpl)
+    need(n_chains > 100 and pack.n_sub > mx.PART_SUBS,
+         f"lineitem planned {n_chains} mxu2 chains of {pack.n_sub} "
+         f"substeps, not over 100 chains and {mx.PART_SUBS} substeps")
+    host = pack.packed().code
+    staged = mx.stage_dense_codes(pack, dev)
+    for p0 in range(0, pack.n_sub, mx.PART_SUBS):
+        n = min(mx.PART_SUBS, pack.n_sub - p0)
+        got = mx.dense_codes(*staged, p0, n)
+        want = mx.dense_codes_plain(*staged[:3], p0, n)
+        mx.raise_on_fault(staged[3])
+        err = max(err, max_abs_err(torch, got, want))
+        need(np.array_equal(got.cpu().numpy(), host[p0:p0 + n]),
+             f"dense_codes: lineitem part at {p0} differs from the host "
+             "packer")
+        if p0 == 0:
+            name = f"lineitem, {n_chains} chains, a part of {n} substeps"
+            by_shape[name] = {
+                "ms": cuda_ms(torch, lambda: mx.dense_codes(*staged, 0, n),
+                              20),
+                "bound_ms": 1e3 * (nbytes(got) + nbytes(staged[0]) * n
+                                   / pack.n_sub) / HBM_BYTES_PER_S}
+        del got, want
+    print(f"[kernel] dense_codes: equal to plain and to the host packer on "
+          f"lineitem, {n_chains} chains, {pack.n_sub} substeps in parts of "
+          f"{mx.PART_SUBS}: kernel {by_shape[name]['ms']:.4f} ms a part "
+          f"[{name_card}]", flush=True)
+    del staged, host, pack
+    # H9's hand-made edges (exp/edge.DENSE_CASES), whole and in parts of
+    # 3 substeps; before-chain stores the host packer's status 2
+    for case in edge.DENSE_CASES:
+        (out_start, ll, ls, ml, mo), buf, ranges = edge.dense_case(case)
+        pack = mx.defer_dense2(out_start, ll, ml, mo, ls, buf, ranges)
+        staged = mx.stage_dense_codes(pack, dev)
+        if case == "before-chain":
+            mx.dense_codes(*staged, 0, pack.n_sub)
+            try:
+                mx.raise_on_fault(staged[3])
+            except ValueError as e:
+                need(str(e) == "pack_dense2 failed with status 2",
+                     f"dense_codes: before-chain raised {e!r}")
+            else:
+                need(False, "dense_codes: before-chain raised nothing")
+            continue
+        host = pack.packed().code
+        for part in (pack.n_sub, 3):
+            got = torch.cat([mx.dense_codes(*staged, p0,
+                                            min(part, pack.n_sub - p0))
+                             for p0 in range(0, pack.n_sub, part)])
+            want = mx.dense_codes_plain(*staged[:3], 0, pack.n_sub)
+            mx.raise_on_fault(staged[3])
+            err = max(err, max_abs_err(torch, got, want))
+            need(np.array_equal(got.cpu().numpy(), host),
+                 f"dense_codes: edge {case}, parts of {part}, differs from "
+                 "the host packer")
+    print(f"[kernel] dense_codes: equal to plain and to the host packer on "
+          f"the edges {', '.join(edge.DENSE_CASES)} (whole and in parts of "
+          "3 substeps); before-chain raised the host packer's status 2",
+          flush=True)
+    main_c = by_shape[src_shape]
+    record("dense_codes", err, main_c["ms"], main_c["plain_ms"],
+           main_c["bound_ms"], "bytes", src_shape)
+    rows["dense_codes"]["by_shape"] = by_shape
 
     # H7: every exact variant (the pointer-jumping decode, its graph, the
     # serial loop and its prefetch) at every substep size against plain
@@ -1441,7 +1572,7 @@ def session_path(torch, lt, tpl, _kernels, corp, dev, name_card):
          "the session's prep thread did not stop")
     counts = dict(_kernels.LAUNCHES)
     for k in ("fused_expand", "fused_route", "mxu2_route", "block_fill",
-              "xxh32_stream"):
+              "xxh32_stream", "dense_codes"):
         need(counts[k] > 0, f"session: kernel {k} was not launched")
     # the session hashes block checksums on the host and decodes by plan
     for k in ("xxh32_blocks", "segment_decode", "mxu2_route_ab"):
@@ -1702,7 +1833,7 @@ SHARDED_FOUR = {"z9m": ("resolver", {}), "b3.5m": ("resolver", {}),
                 "frag2m-bsum": ("spans", FUSED4),
                 "frag2m-legacy": ("spans", FUSED4),
                 "frag32m-indep": ("chains", FUSED4),
-                "src1m": ("chains", {"mxu2_route": 1}),
+                "src1m": ("chains", {"mxu2_route": 1, "dense_codes": 1}),
                 "z9m-indep": ("chains", {"block_fill": 3})}
 
 
@@ -1920,7 +2051,7 @@ def numpy_prep_path(torch, np, lt, tpl, _kernels, corp, name_card,
          f"{tpl.HOST_FALLBACKS - fallbacks} host fallback(s) with the "
          "numpy prep")
     for k in ("fused_expand", "fused_route", "mxu2_route", "block_fill",
-              "xxh32_stream", "xxh32_blocks"):
+              "xxh32_stream", "xxh32_blocks", "dense_codes"):
         need(counts[k] > 0, f"the numpy_prep path did not launch {k}")
     for name, (data, _blob, engines, _f, _b) in cases.items():
         buf = np.frombuffer(data, np.uint8)
@@ -2416,7 +2547,8 @@ print(json.dumps({
 # What the wheel phase decodes on the card, and the kernels each call
 # must launch: (input file, call, kernels)
 WHEEL_CALLS = (
-    ("words32m.lz4", "to_device", ("mxu2_route", "xxh32_stream")),
+    ("words32m.lz4", "to_device", ("mxu2_route", "xxh32_stream",
+                                   "dense_codes")),
     ("frag32m.lz4", "to_device", ("fused_expand", "fused_route")),
     ("z9m.lz4", "to_device", ("block_fill",)),
     ("frag32m-bsum64k.lz4", "to_device", ("xxh32_blocks",)),

@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"fused_expand": 0, "fused_route": 0, "mxu2_route": 0,
             "block_fill": 0, "xxh32_stream": 0, "xxh32_blocks": 0,
-            "segment_decode": 0, "mxu2_route_ab": 0, "emit_levels": 0}
+            "segment_decode": 0, "mxu2_route_ab": 0, "emit_levels": 0,
+            "dense_codes": 0}
 
 _lock = threading.Lock()    # guards the library handle and LAUNCHES
 _lib = None
@@ -56,6 +57,7 @@ _SIGNATURES = {
     "lz4t_segment_decode": [_P, _P, _I64, _P, _I32, _P, _I32, _P],
     "lz4t_mxu2_route_ab": [_P, _I32, _I32, _I32, _P, _P, _P, _I32, _P, _P],
     "lz4t_emit_levels": [_P, _P, _I32, _P, _P, _P, _P],
+    "lz4t_dense_codes": [_P, _I64, _P, _I32, _P, _I32, _I32, _P, _P, _P],
 }
 
 

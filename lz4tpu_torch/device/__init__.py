@@ -83,3 +83,30 @@ def to_device_packed(arrays, device) -> list:
             .view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
             .reshape(a.shape) for a, off in zip(arrays, offs)]
 
+
+
+def to_device_rows(columns, ranges, device) -> torch.Tensor:
+    """Equal-typed host columns, cut to ``ranges`` (``[(lo, hi)]``, the
+    same for each column) and laid end to end, as the rows of one
+    ``(len(columns), n)`` tensor on ``device``: each column's pieces go
+    straight into one pinned staging tensor, with no host copy between,
+    and that is copied as :func:`to_device` copies.  Spans and counter
+    as :func:`to_device`'s."""
+    dtype = np.dtype(columns[0].dtype)
+    n = sum(hi - lo for lo, hi in ranges)
+    dev = torch.device(device)
+    count("h2d_bytes", len(columns) * n * dtype.itemsize)
+    with span("stage"):
+        with span("stage.pin"):
+            staged = torch.empty((len(columns), n),
+                                 dtype=torch.from_numpy(
+                                     np.empty(0, dtype)).dtype,
+                                 pin_memory=dev.type == "cuda")
+            host = staged.numpy()
+            for row, col in zip(host, columns):
+                if ranges:
+                    np.concatenate([col[lo:hi] for lo, hi in ranges],
+                                   out=row)
+        if dev.type != "cuda":
+            return staged
+        return staged.to(dev, non_blocking=True)

@@ -584,7 +584,8 @@ def _launch_chain_groups(table, buf: np.ndarray, mesh: Mesh):
     groups = _balance_chains(units, len(entries))
     me = _process_index()
 
-    staged = []     # (entry, spans [(unit, StagedFused)], plan, comp, fused)
+    # (entry, spans [(unit, StagedFused)], plan, comp, dense, fused)
+    staged = []
     for e, g in zip(entries, groups):
         if not g or e.process_index != me:
             continue
@@ -592,19 +593,21 @@ def _launch_chain_groups(table, buf: np.ndarray, mesh: Mesh):
         g_spans = [units[i] for i in g if isinstance(units[i], SpanUnit)]
         with _on(e):
             spans_e = [(u, _stage_span_unit(u, e.device)) for u in g_spans]
-            plan = comp = fused_e = None
+            plan = comp = dense_e = fused_e = None
             if g_chains:
                 plan = plan_decode(buf, None, table, chains=g_chains)
-                if plan.sparse or plan.other:
+                if plan.sparse or plan.other or plan.dense_pack is not None:
                     comp = to_device(buf, e.device)
+                dense_e = mx.stage_dense2(plan.dense_pack, e.device, comp)
                 fp = plan.fused_prep
                 if fp is not None and fp.n_sub:
                     fused_e = fu.stage_fused_rows(fp, e.device)
-        staged.append((e, spans_e, plan, comp, fused_e))
+        staged.append((e, spans_e, plan, comp, dense_e, fused_e))
 
     kinds = {k: [] for k in ("sparse", "span", "dense", "fused", "other")}
     made_by = []
-    for e, spans_e, plan, comp, fused_e in staged:
+    faults: list = []   # the mxu2 fault flags, read once all have launched
+    for e, spans_e, plan, comp, dense_e, fused_e in staged:
         made = []
         made_by.append((e, made))
         with _on(e, wait=False):      # it waited when it was staged
@@ -620,7 +623,8 @@ def _launch_chain_groups(table, buf: np.ndarray, mesh: Mesh):
                     made.append(out)
                 pack = plan.dense_pack
                 if pack is not None and pack.n_sub:
-                    flat, _ring = mx.decode_dense2_rows(pack, e.device)
+                    flat, _ring = mx.decode_dense2_rows(
+                        pack, e.device, staged=dense_e, faults=faults)
                     made.append(flat)
                     for chain, (_c, slo, _shi, n) in zip(plan.dense_chains,
                                                           pack.out_spans):
@@ -641,6 +645,7 @@ def _launch_chain_groups(table, buf: np.ndarray, mesh: Mesh):
                     made.append(out)
     for e, made in made_by:
         _join(e, made)
+    mx.raise_on_fault(*faults)
     return [s for k in kinds.values() for s in k], units
 
 

@@ -1,6 +1,7 @@
 """Hand-made inputs at the edges of kernel H6 (``segment_decode``), of
-kernel H1's route, of H3's passes and of H7's ring, each with a
-reference of its own (numpy, or the kernel's plain version).
+kernel H1's route, of H3's passes, of H7's ring and of H9's codes, each
+with a reference of its own (numpy, the host packer, or the kernel's
+plain version).
 
 The CPU tests run them through the plain versions, the tests on the
 card and ``chip_smoke.py`` through the kernels: the same tables, the
@@ -261,3 +262,60 @@ def ab_codes(n_sub: int, sub: int, seed: int = 5) -> np.ndarray:
     known = rng.integers(0, 256, (n_sub, sub)).astype(np.int32) << 17
     ring = rng.integers(0, RING, (n_sub, sub)).astype(np.int32) | 1 << 16
     return np.where(rng.random((n_sub, sub)) < 0.75, ring, known)
+
+
+# ---------------------------------------------------------------------------
+# dense_codes (H9)
+# ---------------------------------------------------------------------------
+
+def dense_table(chains, seed=0):
+    """Sequence-table columns of chains given as ``[(lit_len, match_len,
+    match_off)]`` each, laid end to end as a table lays them (global
+    ``out_start`` and ``lit_src``) over seeded literal bytes: ``(cols,
+    buf, ranges)``, ``cols = (out_start, lit_len, lit_src, match_len,
+    match_off)`` int32, ``ranges`` each chain's sequences."""
+    seqs = [s for c in chains for s in c]
+    ll, ml, mo = (np.array(v, np.int32) for v in zip(*seqs))
+    ls = np.zeros_like(ll)
+    ls[1:] = np.cumsum(ll)[:-1]
+    out_start = np.zeros_like(ll)
+    out_start[1:] = np.cumsum(ll.astype(np.int64) + ml)[:-1]
+    buf = np.random.default_rng(seed).integers(0, 256, int(ll.sum()) + 8,
+                                               dtype=np.uint8)
+    bounds = np.cumsum([0] + [len(c) for c in chains]).tolist()
+    return ((out_start, ll, ls, ml, mo), buf,
+            list(zip(bounds[:-1], bounds[1:])))
+
+
+#: H9's edges, as ``dense_table`` arguments: where its fill, its
+#: pointer doubling, its chunks of 512 sequences and the ring codes have
+#: one.  ``before-chain`` is the host packer's status 2: the second
+#: chain's first match reaches into the first chain.
+DENSE_CASES = {
+    # off == 1 runs: within a substep, across substep edges, after a
+    # literal that ends a substep
+    "off1": ([[(1, 9_000, 1), (2_047, 4, 1), (1, 2_049, 1), (0, 3, 1),
+               (5, 0, 0)]], 0),
+    # 1 < off < 2048: overlaps whose sources cross a substep edge
+    "overlap": ([[(1_000, 3_000, 700), (3, 5_000, 1_500),
+                  (10, 2_047, 2_047), (0, 4_100, 2), (4, 0, 0)]], 0),
+    # off >= 2048: ring codes that wrap the 64 Ki ring, and a match
+    # longer than the ring
+    "ring": ([[(70_000, 0, 0), (3, 100, 3_000), (0, 10_000, 60_000),
+               (5, 2_500, 65_535), (1, 150_000, 2_048), (7, 40, 65_535)]],
+             1),
+    # chains that end mid-substep, an empty one, several with their
+    # out_spans and ring rows
+    "chains": ([[(100, 1_000, 60), (7, 0, 0)], [(5, 0, 0)],
+                [(3_000, 4, 2_100), (1, 7_000, 3)], [(1, 2_046, 1)]], 2),
+    # more than 512 sequences in one substep (4-byte matches), so that
+    # the kernel takes a second chunk
+    "chunks": ([[(2, 4, 1)] + [(0, 4, 1)] * 1500 + [(2, 0, 0)]], 4),
+    "before-chain": ([[(50, 10, 5)], [(4, 8, 30)]], 3),
+}
+
+
+def dense_case(name):
+    """``(cols, buf, ranges)`` of ``DENSE_CASES[name]``."""
+    chains, seed = DENSE_CASES[name]
+    return dense_table(chains, seed)

@@ -66,7 +66,7 @@ CPU_MAX_BYTES = 64 * KIB     # --device cpu: payloads cut to this
 #: is the A/B harness and launches on no decode path)
 DECODE_KERNELS = ("fused_expand", "fused_route", "mxu2_route",
                   "block_fill", "xxh32_stream", "xxh32_blocks",
-                  "segment_decode")
+                  "segment_decode", "dense_codes")
 #: the classifier's engines at the soak's sizes ("resolve" plans only
 #: chains over pipeline._DENSE_MAX_CHAIN_OUT, 1 GiB)
 ENGINES = ("sparse", "fused", "dense")

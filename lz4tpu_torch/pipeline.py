@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import threading
 
@@ -83,12 +84,18 @@ class DecodeStats:
     plan_s: float = 0.0
     device_s: float = 0.0
     verify_s: float = 0.0
+    dense_codes_s: float = 0.0
+    device_codes: int = 0
 
     def read_spans(self, rec, request: int) -> None:
-        """The ``*_s`` fields from ``request``'s spans in ``rec``."""
+        """The ``*_s`` fields from ``request``'s spans in ``rec``, and
+        ``device_codes`` (substeps whose mxu2 codes the card built) from
+        its counter."""
         for stage in ("parse", "scan", "plan", "device", "verify"):
             setattr(self, f"{stage}_s",
                     rec.seconds(f"decode.{stage}", request))
+        self.dense_codes_s = rec.seconds("decode.dense.codes", request)
+        self.device_codes = rec.counters.get("decode.dense.device_codes", 0)
 
     def note_engine(self, name: str, chain) -> None:
         self.engine_chains[name] = self.engine_chains.get(name, 0) + 1
@@ -469,14 +476,14 @@ class DecodePlan:
     * ``fused``: many small sequences (text) -> fused expansion +
       routing kernel (device/fused.py) — host work O(sequences)
     * ``dense``: fused-budget overflows (dense in-substep references)
-      -> host-packed routing kernel (device/mxu2.py)
+      -> per-byte routing codes and their kernel (device/mxu2.py)
     * ``pallas``/``resolve``: anything the fast paths decline
       (oversized chains, pathological shapes)
     """
 
     sparse: list         # [(chain, SparseProgram)]
     dense_chains: list   # [chain]
-    dense_pack: object   # DensePack2 | None
+    dense_pack: object   # DensePack2 (deferred: no codes yet) | None
     other: list          # [chain] -> segment kernel / resolver
     fused_chains: list = dataclasses.field(default_factory=list)
     fused_prep: object = None   # device.fused.FusedPrep | None
@@ -488,10 +495,11 @@ _SPARSE_MAX_SEQS = 512
 # would hold multi-GB host/device transients; beyond the cap the part-wise
 # host-pack engine (mxu2) takes over.
 _FUSED_MAX_CHAIN_OUT = 64 << 20
-# Chain-size caps for the dense packer: the native resolver's host
-# transient is the 4 B/byte code array (device memory stays bounded by
-# part-wise launches, mxu2.PART_SUBS); the numpy resolver's pointer
-# doubling needs ~40 B/byte.
+# Chain-size caps for the dense packer: where the host packs (a decode
+# on the CPU) the native resolver's host transient is the 4 B/byte code
+# array (device memory stays bounded by part-wise launches,
+# mxu2.PART_SUBS); the numpy resolver's pointer doubling needs ~40
+# B/byte.
 _DENSE_MAX_CHAIN_OUT = 1 << 30
 _DENSE_MAX_CHAIN_OUT_NUMPY = 1 << 28
 
@@ -501,8 +509,10 @@ def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
                 engine: str = "auto") -> DecodePlan:
     """Classify every chain and prepare the fused / mxu2 inputs: the
     plan of ``lz4tpu.pipeline.plan_decode`` (same engines per chain,
-    same per-chain FusedOverflow isolation).  Chains over the dense
-    packer's cap go to ``plan.other`` (the resolver): the cap is
+    same per-chain FusedOverflow isolation), the mxu2 chains in the
+    deferred form (``mxu2.defer_dense2``: their codes are built when the
+    plan is decoded).  Chains over the dense packer's cap go to
+    ``plan.other`` (the resolver): the cap is
     ``_DENSE_MAX_CHAIN_OUT`` with the native engine,
     ``_DENSE_MAX_CHAIN_OUT_NUMPY`` without it.
 
@@ -590,9 +600,10 @@ def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
         if stats is not None:
             stats.note_engine("dense", chain)
     if dense_ranges:
-        plan.dense_pack = mx.pack_dense2(
-            table.lit_len, table.match_len, table.match_off,
-            table.lit_src, buf, chain_ranges=dense_ranges,
+        # the codes are built where the decode runs (H9 on the card)
+        plan.dense_pack = mx.defer_dense2(
+            table.out_start, table.lit_len, table.match_len,
+            table.match_off, table.lit_src, buf, chain_ranges=dense_ranges,
         )
     if trace.active():
         for name, planned in (("sparse", plan.sparse),
@@ -708,11 +719,14 @@ def _decode_via_plan(buf: np.ndarray, parsed: ParseResult, table: SeqTable,
     """Run a DecodePlan and fetch the assembled output to the host;
     stragglers (``plan.other``) go through the segment-copy kernel."""
     comp_dev = to_device(buf, dev) if plan.sparse or plan.other else None
+    faults: list = []
     segs = build_device_segments(
         buf, table, dataclasses.replace(plan, other=[]), dev,
-        comp_dev=comp_dev)
+        comp_dev=comp_dev, faults=faults)
     segs += _segment_chains(parsed, table, plan.other, comp_dev)
-    return assemble_device_segments(segs, table.n_out, dev).cpu().numpy()
+    out = assemble_device_segments(segs, table.n_out, dev)
+    mx.raise_on_fault(*faults)
+    return out.cpu().numpy()
 
 
 def _resolve_chain(buf: np.ndarray, table: SeqTable, chain,
@@ -740,15 +754,21 @@ def _resolve_chain(buf: np.ndarray, table: SeqTable, chain,
 
 def build_device_segments(buf: np.ndarray, table: SeqTable,
                           plan: DecodePlan, device,
-                          comp_dev: torch.Tensor | None = None) -> list:
+                          comp_dev: torch.Tensor | None = None,
+                          faults: list | None = None) -> list:
     """Execute a DecodePlan on ``device``: ``[(out_lo, uint8 tensor of
     exactly the chain's length)]``.  ``comp_dev``: the compressed
-    buffer already staged on ``device``, reused by the sparse programs
-    and the resolver."""
+    buffer already staged on ``device``, reused by the sparse programs,
+    the mxu2 codes and the resolver.  ``faults``: where given, the mxu2
+    engine's fault flags go there unread, for the caller to read with
+    ``mxu2.raise_on_fault`` once it synchronises
+    (``mxu2.decode_dense2_rows``); else that engine reads them as it
+    launches."""
     dev = torch.device(device)
     with trace.span("decode.engines"):
         segs: list = []
-        if (plan.sparse or plan.other) and comp_dev is None:
+        if (plan.sparse or plan.other or plan.dense_pack is not None) \
+                and comp_dev is None:
             comp_dev = to_device(buf, dev)
         for chain, prog in plan.sparse:
             n_c = chain.out_hi - chain.out_lo
@@ -756,8 +776,10 @@ def build_device_segments(buf: np.ndarray, table: SeqTable,
                 segs.append((chain.out_lo,
                              sp.decode_sparse_device(prog, comp_dev)[:n_c]))
         for name, rows_of, prep, chains, sub in (
-            ("decode.engine.dense", mx.decode_dense2_rows, plan.dense_pack,
-             plan.dense_chains, mx.SUB),
+            ("decode.engine.dense",
+             functools.partial(mx.decode_dense2_rows, comp_dev=comp_dev,
+                               faults=faults),
+             plan.dense_pack, plan.dense_chains, mx.SUB),
             ("decode.engine.fused", fu.decode_fused_rows, plan.fused_prep,
              plan.fused_chains, fu.SUB),
         ):
@@ -950,9 +972,12 @@ def _decompress_to_device_batch(data, reservation, dev: torch.device,
     if out_dev is None:
         with trace.span("decode.plan"):
             plan = plan_decode(buf, parsed, table)
+        faults: list = []
         segs = build_device_segments(buf, table, plan, dev,
-                                     comp_dev=comp_dev)
+                                     comp_dev=comp_dev, faults=faults)
         out_dev = assemble_device_segments(segs, table.n_out, dev)
+        # every launch is queued: the one wait for the mxu2 codes' flag
+        mx.raise_on_fault(*faults)
     if verify == "host":
         with trace.span("decode.verify"):
             _verify_checksums(buf, parsed, out_dev.cpu().numpy(), table)

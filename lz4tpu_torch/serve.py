@@ -36,6 +36,7 @@ import torch
 
 from . import pipeline as pl
 from .constants import FOR_ALL, Reservation
+from .device import mxu2 as mx
 from .device import to_device
 from .errors import Lz4Error
 
@@ -57,6 +58,7 @@ class DecodeTicket:
         self._table = None
         self._segs: list | None = None   # [(out_lo, device tensor)]
         self._event = None               # CUDA event after the last launch
+        self._faults: list = []          # mxu2 fault flags, read on join
         self._out_np: bytes | None = None
         self._out_dev = None             # cached device-resident result
         self._verified = False           # checksums checked (either path)
@@ -66,12 +68,14 @@ class DecodeTicket:
         self._error = exc
         self._done.set()
 
-    def _finish(self, buf, parsed, table, segs, event=None) -> None:
+    def _finish(self, buf, parsed, table, segs, event=None,
+                faults=()) -> None:
         self._buf = buf
         self._parsed = parsed
         self._table = table
         self._segs = segs
         self._event = event
+        self._faults = list(faults)
         self._done.set()
 
     # -- caller side --------------------------------------------------------
@@ -88,13 +92,21 @@ class DecodeTicket:
     def _join_stream(self, tensors) -> None:
         """Order the caller's current stream after the stream that
         produced ``tensors``, and keep their memory from being handed
-        out again while the caller's queued work still reads it."""
+        out again while the caller's queued work still reads it.  The
+        first join reads the decode's mxu2 fault flags (waiting for its
+        launches) and raises, from then on, the host packer's error."""
         if self._event is None:
             return
         cur = torch.cuda.current_stream(self._session.device)
         cur.wait_event(self._event)
         for t in tensors:
             t.record_stream(cur)
+        faults, self._faults = self._faults, []
+        try:
+            mx.raise_on_fault(*faults)
+        except ValueError as e:
+            self._error = e
+            raise
 
     def result(self, timeout: float | None = None) -> bytes:
         if not self._done.wait(timeout):
@@ -332,12 +344,15 @@ class DecodeSession:
         # staging and launches do not wait for the stream, so this
         # returns once the kernels are queued and the card overlaps the
         # next request's prep.
+        # the mxu2 fault flags are read by the collector, not here: the
+        # next request's prep does not wait for this one's kernels
+        faults: list = []
         segs = pl.build_device_segments(
-            buf, table, pl.plan_decode(buf, parsed, table), self.device
-        )
+            buf, table, pl.plan_decode(buf, parsed, table), self.device,
+            faults=faults)
         event = (self._stream.record_event()
                  if self._stream is not None else None)
-        ticket._finish(buf, parsed, table, segs, event)
+        ticket._finish(buf, parsed, table, segs, event, faults)
 
     # -- result-side checksum verification --------------------------------
     @staticmethod

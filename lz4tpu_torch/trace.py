@@ -30,7 +30,11 @@ was handed and how it was planned: ``decode.frames`` and
 ``decode.fused.isolated`` (chains prepared again one by one, inside the
 span ``decode.plan.isolate``, after the fused prep of them all together
 overflowed), read from a recording; no benchmark metric reads them
-yet.  The counter ``encode.levels.kernel`` (one a block whose prefix
+yet.  The span ``decode.dense.codes`` (inside ``decode.engine.dense``:
+the staging of the mxu2 chains' columns and kernel H9's launches) and
+the counter ``decode.dense.device_codes`` (substeps whose mxu2 codes the
+card built, a request) are read by ``DecodeStats`` and ``lz4-bench
+--stats``.  The counter ``encode.levels.kernel`` (one a block whose prefix
 levels kernel H8 decided) is read from a recording, beside the blocks
 encoded, by whoever asks how often the kernel took the block.
 """

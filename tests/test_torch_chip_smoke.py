@@ -59,7 +59,7 @@ def test_kernel_table_names_every_kernel_of_the_port():
 
     smoke = _smoke()
     assert set(smoke.KERNELS) == set(_kernels.LAUNCHES)
-    assert len(smoke.KERNELS) == 9 and "mxu2_route_ab" in smoke.KERNELS
+    assert len(smoke.KERNELS) == 10 and "mxu2_route_ab" in smoke.KERNELS
     sources = {p.name for p in _kernels.CSRC.glob("*.cu")}
     for name, (src, replaces) in smoke.KERNELS.items():
         assert (REPO / src).is_file(), name

@@ -635,6 +635,128 @@ def test_mxu2_decode_refuses_other_ring_rows(cuda):
     assert _kernels.LAUNCHES["mxu2_route"] == n0
 
 
+def _defer(cols, buf, ranges):
+    out_start, ll, ls, ml, mo = cols
+    return tmx.defer_dense2(out_start, ll, ml, mo, ls, buf, ranges)
+
+
+def _dense_codes_both(pack, cuda, part=tmx.PART_SUBS):
+    """H9's codes of a deferred pack, part by part, next to its plain
+    version's on the same staged tensors: two int32 (n_sub, SUB) on the
+    CPU."""
+    staged = tmx.stage_dense_codes(pack, cuda)
+    got, want = [], []
+    for p0 in range(0, pack.n_sub, part):
+        n = min(part, pack.n_sub - p0)
+        got.append(tmx.dense_codes(*staged, p0, n).cpu())
+        want.append(tmx.dense_codes_plain(*staged[:3], p0, n).cpu())
+    tmx.raise_on_fault(staged[3])
+    return torch.cat(got), torch.cat(want)
+
+
+@pytest.mark.parametrize("part", [tmx.PART_SUBS, 3])
+@pytest.mark.parametrize("name", sorted(edge.DENSE_CASES))
+def test_dense_codes_kernel_edges(cuda, name, part):
+    """H9 on its hand-made edges equals its plain version and the host
+    packer, whole and in parts of 3 substeps; a match before its chain's
+    start raises the host packer's ValueError after the launch, in the
+    decode too, or where the caller reads the flag it was handed."""
+    pack = _defer(*edge.dense_case(name))
+    n0 = _kernels.LAUNCHES["dense_codes"]
+    if name == "before-chain":
+        staged = tmx.stage_dense_codes(pack, cuda)
+        tmx.dense_codes(*staged, 0, pack.n_sub)
+        with pytest.raises(ValueError,
+                           match="^pack_dense2 failed with status 2$"):
+            tmx.raise_on_fault(staged[3])
+        with pytest.raises(ValueError,
+                           match="^pack_dense2 failed with status 2$"):
+            tmx.decode_dense2_rows(pack, cuda)
+        # with a list the flag is handed back unread, for the caller's
+        # synchronisation, and raises there
+        faults = []
+        tmx.decode_dense2_rows(pack, cuda, faults=faults,
+                               staged=tmx.stage_dense2(pack, cuda))
+        assert len(faults) == 1
+        with pytest.raises(ValueError,
+                           match="^pack_dense2 failed with status 2$"):
+            tmx.raise_on_fault(*faults)
+        return
+    got, want = _dense_codes_both(pack, cuda, part)
+    assert _kernels.LAUNCHES["dense_codes"] == n0 + -(-pack.n_sub // part)
+    assert torch.equal(got, want)
+    assert np.array_equal(got.numpy(), pack.packed().code)
+    rows, ring = tmx.decode_dense2_rows(pack, cuda, part_subs=part)
+    rows_p, ring_p = tmx.decode_dense2_rows(pack, "cpu", part_subs=part)
+    torch.cuda.synchronize()
+    assert torch.equal(rows.cpu(), rows_p) and torch.equal(ring.cpu(), ring_p)
+
+
+def test_dense_codes_kernel_on_a_words32m_chain(cuda):
+    """H9 on words32m's one mxu2 chain of 16,384 substeps (chip_smoke.py's
+    corpus) against its plain version and the host packer."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    data, blob = smoke.words32m(np, lz4tpu_torch)
+    buf = np.frombuffer(data, np.uint8)
+    parsed = tpl.parse_frames(buf, FOR_ALL)
+    table = tpl.build_seq_table(buf, parsed, FOR_ALL, data)
+    plan = tpl.plan_decode(buf, parsed, table)
+    pack = plan.dense_pack
+    assert len(plan.dense_chains) == 1 and pack.n_sub == 16_384
+    got, want = _dense_codes_both(pack, cuda)
+    assert torch.equal(got, want)
+    assert np.array_equal(got.numpy(), pack.packed().code)
+
+
+def test_dense_codes_kernel_on_a_lineitem_request(cuda, monkeypatch):
+    """Every dense chain of one ``tpch-lineitem-1m`` request, at the
+    cell's size: H9 equals its plain version and the native packer; the
+    request's decode builds every dense substep's codes on the card
+    (counter ``decode.dense.device_codes``) and never calls the host
+    packer."""
+    from lz4bench import harness
+    from lz4tpu_torch import trace
+
+    cell = harness.load_cell("tpch-lineitem-1m")
+    entry = harness.entry_class(cell.traffic["entry"])(
+        harness.make_requests(cell, 2**31 + 29), cell.config, cell.traffic,
+        torch.device("cpu"))
+    data = entry.joined[0]
+    buf = np.frombuffer(data, np.uint8)
+    parsed = tpl.parse_frames(buf, FOR_ALL)
+    table = tpl.build_seq_table(buf, parsed, FOR_ALL, data)
+    plan = tpl.plan_decode(buf, parsed, table)
+    pack = plan.dense_pack
+    assert len(plan.dense_chains) > 100 and pack.n_sub > 50_000
+    got, want = _dense_codes_both(pack, cuda)
+    assert torch.equal(got, want)
+    assert native.available()
+    assert np.array_equal(got.numpy(), pack.packed().code)
+
+    def refused(*_a, **_k):
+        raise AssertionError("a CUDA decode called the host packer")
+
+    monkeypatch.setattr(native, "pack_dense2_chain", refused)
+    monkeypatch.setattr(tmx, "_pack_chain", refused)
+    n0 = _kernels.LAUNCHES["dense_codes"]
+    with trace.recording() as rec:
+        out = lz4tpu_torch.decompress_to_device(data, verify="none")
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), entry.refs[0])
+    assert rec.counters["decode.dense.device_codes"] == pack.n_sub
+    assert rec.counters["decode.chains.dense"] == len(plan.dense_chains)
+    assert _kernels.LAUNCHES["dense_codes"] - n0 == -(-pack.n_sub
+                                                       // tmx.PART_SUBS)
+    assert rec.seconds("decode.dense.codes") > 0
+
+
 @pytest.mark.parametrize("n_sub", [1, 64, 131, 132, 133, 1055, 1056, 1057,
                                    2500])
 def test_fused_expand_kernel_grid_sizes(cuda, n_sub):

@@ -355,7 +355,8 @@ def test_plan_decode_engines_match_jax(monkeypatch, engine, name):
     if t_plan.fused_prep is not None:
         _assert_same_prep(t_plan.fused_prep, j_plan.fused_prep)
     if t_plan.dense_pack is not None:
-        assert np.array_equal(t_plan.dense_pack.code, j_plan.dense_pack.code)
+        assert np.array_equal(t_plan.dense_pack.packed().code,
+                              j_plan.dense_pack.code)
 
 
 # ---------------------------------------------------------------------------

@@ -355,9 +355,11 @@ def _assert_same_plan(pt, pj):
             _chain_key(c) for c in getattr(pj, k)], k
     assert (pt.dense_pack is None) == (pj.dense_pack is None)
     if pt.dense_pack is not None:
-        for k in ("code", "scal"):
-            assert np.array_equal(getattr(pt.dense_pack, k),
-                                  np.asarray(getattr(pj.dense_pack, k))), k
+        # the port's plan defers the codes: they are its host packer's
+        assert np.array_equal(pt.dense_pack.packed().code,
+                              np.asarray(pj.dense_pack.code))
+        assert np.array_equal(pt.dense_pack.scal,
+                              np.asarray(pj.dense_pack.scal))
         for k in ("n_sub", "out_spans"):
             assert getattr(pt.dense_pack, k) == getattr(pj.dense_pack, k)
     assert (pt.fused_prep is None) == (pj.fused_prep is None)

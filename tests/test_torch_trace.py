@@ -245,7 +245,8 @@ def test_counts_from_threads_add_up():
 
 STATS_FIELDS = ["comp_bytes", "out_bytes", "n_frames", "n_blocks",
                 "n_chains", "n_seqs", "engine_chains", "engine_bytes",
-                "parse_s", "scan_s", "plan_s", "device_s", "verify_s"]
+                "parse_s", "scan_s", "plan_s", "device_s", "verify_s",
+                "dense_codes_s", "device_codes"]
 
 
 def test_decode_stats_from_spans(two_blocks):
