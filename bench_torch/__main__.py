@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 
 import torch
@@ -35,10 +34,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("bench_torch: CUDA is not available; the bench measures the "
               "card and has no CPU fallback", file=sys.stderr)
-        return 2
-    if os.environ.get("LZ4TPU_PIPELINE"):
-        print("bench_torch: LZ4TPU_PIPELINE is set; the bench measures the "
-              "default decode path", file=sys.stderr)
         return 2
     print(run.card_line(), flush=True)
     try:

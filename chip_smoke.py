@@ -14,14 +14,13 @@ g++:  ``python3 chip_smoke.py``.  It
    kernels must equal the native host hash and the segment kernel the
    original bytes.  Kernels are timed with CUDA events, and each gets
    the least time the card could take for the same work (its bound);
-4. drives nine paths over seeded in-process corpora, the launch
+4. drives eight paths over seeded in-process corpora, the launch
    counters set to 0 before each and read after it:
    ``decompress_to_device(verify="host")``,
    ``decompress_to_device(verify="device")``, ``decompress_device``
    (engines auto / pallas / resolve, and ``decompress(backend=
    "device")``), the A/B harness of the mxu2 route variants
-   (``lz4tpu_torch.exp.ab``, short setting),
-   ``decompress_to_device(pipelined=True)``, one
+   (``lz4tpu_torch.exp.ab``, short setting), one
    ``DecodeSession(max_inflight=4)`` answering every corpus three ways,
    and ``dist.decompress_sharded`` on a one-entry mesh and on four
    entries of cuda:0 (each on its own stream), requiring the original
@@ -30,13 +29,13 @@ g++:  ``python3 chip_smoke.py``.  It
    the native host engine off (``native.available()`` False, its prep,
    pack and resolve functions refusing), so the numpy host prep feeds
    the same kernels, and times its ``plan`` against the native one's;
-   a ninth path encodes: ``compress(backend=
+   an eighth path encodes: ``compress(backend=
    "device"|"device-emit")`` on the card against the same calls on the
    CPU, ``dist.compress_sharded`` on both meshes against
    ``compress(backend="device")``, every frame decoded back on the card,
    and ``python -m lz4tpu_torch.cli lz4-bench`` as subprocesses; then
    times ``verify="host"`` against
-   ``verify="device"``, pipelined against monolithic, the session
+   ``verify="device"``, the session
    against a serial loop (with the serial host-stage rate beside them),
    and ``decompress_to_device`` against the sharded decode on both
    meshes, end to end in alternating turns, pinned staging against the
@@ -295,16 +294,13 @@ def indep2m(np, lt):
 
 def expand_shapes(np, lt, tpl, corp):
     """What H1's expand is timed on, as ``(name, prep, n_sub)``: the
-    first substeps of a prep, one launch's worth: a pipelined chunk
-    (``PIPE_SUBS`` = 64 substeps of frag32m), frag1m's whole chain (556)
-    and frag32m's first part (``PART_SUBS`` = 8192)."""
+    first substeps of a prep, one launch's worth: frag1m's whole chain
+    (556) and frag32m's first part (``PART_SUBS`` = 8192)."""
     from lz4tpu_torch.device import fused as fu
 
     p1 = plan_of(np, lt, tpl, corp["frag1m"][0])[3].fused_prep
     p32 = plan_of(np, lt, tpl, corp["frag32m"][0])[3].fused_prep
-    return ((f"frag32m, a pipelined chunk of {fu.PIPE_SUBS} substeps", p32,
-             fu.PIPE_SUBS),
-            (f"frag1m, {p1.n_sub} substeps", p1, p1.n_sub),
+    return ((f"frag1m, {p1.n_sub} substeps", p1, p1.n_sub),
             (f"frag32m's first part, {fu.PART_SUBS} substeps", p32,
              fu.PART_SUBS))
 
@@ -551,8 +547,8 @@ def kernel_phase(torch, np, lt, tpl, corp, words, dev, name_card, probe):
     pos_p = fu.expand_plain(t["seqrec"], t["scal"], t["patch"])
     torch.cuda.synchronize()
     shape = f"frag1m, {n} substeps"
-    # H1's expand at each launch shape it has on the paths: a pipelined
-    # chunk, frag1m's chain, frag32m's first part; frag1m's is the row's
+    # H1's expand at each launch shape it has on the paths: frag1m's
+    # chain, frag32m's first part; frag1m's is the row's
     by_shape, err = {}, 0
     for name, prep_e, n_e in expand_shapes(np, lt, tpl, corp):
         te = [to_device(np.ascontiguousarray(getattr(prep_e, k)[:n_e]), dev)
@@ -1318,119 +1314,6 @@ def med_range(t) -> str:
     return f"{statistics.median(t):.3f} ms ({min(t):.3f}..{max(t):.3f})"
 
 
-def pipelined_path(torch, np, lt, tpl, _kernels, corp, name_card):
-    """decompress_to_device(pipelined=True): one launch pair per
-    64-substep chunk on single fused chains, the monolithic plan on what
-    it does not fit; then pipelined against monolithic in turns, and
-    where the host's time goes inside one pipelined decode."""
-    from lz4tpu_torch import native
-    from lz4tpu_torch.device import fused as fu
-
-    _kernels.reset_launches()
-    for name in ("frag1m", "frag32m", "frag2m-legacy"):
-        data, blob = corp[name][0], corp[name][1]
-        n_chunks = -(-(-(-len(blob) // fu.SUB)) // fu.PIPE_SUBS)
-        for mode in ("host", "device"):
-            before = dict(_kernels.LAUNCHES)
-            res = lt.decompress_to_device(data, verify=mode, pipelined=True)
-            torch.cuda.synchronize()
-            need(res.cpu().numpy().tobytes() == blob,
-                 f"{name}: pipelined decode (verify={mode!r}) differs from "
-                 "the original")
-            ran = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
-            need(ran["fused_expand"] == ran["fused_route"] == n_chunks,
-                 f"{name}: pipelined decode launched {ran['fused_expand']} "
-                 f"expand and {ran['fused_route']} route, expected "
-                 f"{n_chunks} each")
-        print(f"[pipelined] {name}: {len(blob)} B in {n_chunks} chunks of "
-              f"{fu.PIPE_SUBS} substeps, {n_chunks} launches each of "
-              "fused_expand and fused_route, original bytes under "
-              "verify='host' and 'device'", flush=True)
-    for name, kernel in (("z9m", "block_fill"), ("src1m", "mxu2_route")):
-        data, blob = corp[name][0], corp[name][1]
-        before = dict(_kernels.LAUNCHES)
-        res = lt.decompress_to_device(data, pipelined=True)
-        torch.cuda.synchronize()
-        need(res.cpu().numpy().tobytes() == blob,
-             f"{name}: pipelined=True differs from the original")
-        need(_kernels.LAUNCHES[kernel] == before[kernel] + 1,
-             f"{name}: pipelined=True did not fall back to the monolithic "
-             f"plan ({kernel})")
-        print(f"[pipelined] {name}: not a fused chain within budget, "
-              f"decoded by the monolithic plan ({kernel})", flush=True)
-    counts = dict(_kernels.LAUNCHES)
-    for name in ("frag1m", "frag32m"):
-        data = corp[name][0]
-        for mode in ("host", "none"):
-            ms = in_turns(torch, {
-                "pipelined": lambda: lt.decompress_to_device(
-                    data, verify=mode, pipelined=True),
-                "monolithic": lambda: lt.decompress_to_device(
-                    data, verify=mode, pipelined=False)})
-            print(f"[pipelined] {name} verify={mode!r}: " + " against ".join(
-                f"{k} {med_range(t)}" for k, t in ms.items())
-                + f" (median and range of 5, in turns) [{name_card}]",
-                flush=True)
-    # one pipelined decode of frag32m by hand, with the chunk stamps
-    data = corp["frag32m"][0]
-    buf = np.frombuffer(data, np.uint8)
-    table = tpl.build_seq_table(buf, tpl.parse_frames(buf, lt.FOR_ALL),
-                                lt.FOR_ALL, data, pooled_cols=True)
-    t0 = time.monotonic()
-    pre = native.prep_phase1(table.lit_len, table.match_len,
-                             table.match_off, table.lit_src, buf)
-    t1 = time.monotonic()
-    ctr = {}
-    fu.decode_fused_pipelined(
-        table.lit_len, table.match_len, table.match_off, table.lit_src,
-        buf, pre, device="cuda", counters=ctr)
-    t2 = time.monotonic()
-    torch.cuda.synchronize()
-    t3 = time.monotonic()
-    prep, disp = ctr["prep_done_t"], ctr["dispatch_t"]
-    range_prep = sum(p - d for p, d in zip(prep[1:], disp))
-    dispatch = sum(d - p for p, d in zip(prep, disp))
-    print(f"[pipelined] frag32m host time of one decode: phase 1 "
-          f"{1e3 * (t1 - t0):.3f} ms, set-up before the first chunk's "
-          f"prep ended {1e3 * (prep[0] - t1):.3f} ms, range prep of the "
-          f"other {len(prep) - 1} chunks {1e3 * range_prep:.3f} ms, staging "
-          f"and launches {1e3 * dispatch:.3f} ms, the card still busy after "
-          f"the last launch {1e3 * (t3 - t2):.3f} ms [{name_card}]",
-          flush=True)
-    # where a chunk's staging and launches go: the loop body's four
-    # steps on a zeroed chunk (zero records scatter nothing), unsynchronised
-    # as in the decode
-    from lz4tpu_torch.device import to_device, to_device_packed
-
-    n = fu.PIPE_SUBS
-    chunk = [np.zeros((n, 2, 8, fu.SEQ_MAX // 8), np.int32),
-             np.zeros((n, 8, fu.PATCH_MAX // 8), np.int32),
-             np.zeros((n, 8), np.int32), np.zeros(n, np.int32)]
-    lits_dev = to_device(np.zeros((1, 32, 256), np.uint8), "cuda")
-    segs = fu.segments_tensor([(0, n, 1)], "cuda")
-    ring = fu.zero_ring("cuda")
-    steps = {"window check": [], "packed staging copy": [], "expand": [],
-             "route": []}
-    for _ in range(64):
-        stamps = [time.perf_counter()]
-        fu._check_windows(chunk[3], chunk[2], 1)
-        stamps.append(time.perf_counter())
-        seqrec_d, patch_d, scal_d, winq_d = to_device_packed(chunk, "cuda")
-        stamps.append(time.perf_counter())
-        pos17 = fu.expand(seqrec_d, scal_d, patch_d)
-        stamps.append(time.perf_counter())
-        _rows, ring = fu.route(pos17, lits_dev, winq_d, scal_d, segs, ring)
-        stamps.append(time.perf_counter())
-        for k, a, b in zip(steps, stamps, stamps[1:]):
-            steps[k].append(1e3 * (b - a))
-    torch.cuda.synchronize()
-    print("[pipelined] host time of one chunk's dispatch (64 substeps, "
-          f"{sum(a.nbytes for a in chunk)} B staged): " + ", ".join(
-              f"{k} {statistics.median(t):.4f} ms" for k, t in steps.items())
-          + f" (host clock, median of 64) [{name_card}]", flush=True)
-    return counts
-
-
 def windowed(session, datas, collect, window=4):
     """Submit ``datas`` with at most ``window`` tickets uncollected,
     collecting the oldest first; returns collect(ticket) per input."""
@@ -1956,8 +1839,7 @@ def sharded_path(torch, np, lt, tpl, _kernels, corp, name_card):
 NUMPY_PREP = ("z9m", "b3.5m", "frag1m", "src1m", "frag2m-bsum",
               "frag2m-legacy", "frag32m-indep")
 NATIVE_PREP = ("prep_fused_chain", "prep_fused_chain_pre",
-               "prep_fused_pre_range", "prep_phase1", "pack_dense2_chain",
-               "resolve_window")
+               "pack_dense2_chain", "resolve_window")
 
 
 @contextlib.contextmanager
@@ -2751,8 +2633,6 @@ def main() -> int:
     paths["decompress_device"] = decompress_device_path(
         torch, np, lt, tpl, _kernels, corp, dev, card)
     paths["ab"] = ab_path(torch, lt, _kernels, corp, card)
-    paths["pipelined"] = pipelined_path(torch, np, lt, tpl, _kernels, corp,
-                                        card)
     paths["session"] = session_path(torch, lt, tpl, _kernels, corp, dev,
                                     card)
     paths["sharded"] = sharded_path(torch, np, lt, tpl, _kernels, corp,

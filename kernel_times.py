@@ -22,8 +22,8 @@ frag1m (one chain each), indep2m (32 chains of 64 KiB) and frag32m in
 independent 64 KiB blocks (512 chains); ``fused_route`` (median of 20)
 on frag1m's one chain and on frag32m-indep's 8 chains in one launch;
 ``fused_expand`` (median of 20) on the shapes ``chip_smoke.expand_shapes``
-names (a 64-substep pipelined chunk, frag1m's 556 substeps, frag32m's
-first part of 8192); ``mxu2_route`` (median of 20, of 5 on words32m) on
+names (frag1m's 556 substeps, frag32m's first part of 8192);
+``mxu2_route`` (median of 20, of 5 on words32m) on
 ``chip_smoke.route_shapes``: src1m and words32m, each one dense chain;
 ``mxu2_route_ab`` (median of 20): the harness kernel H7's ``exact``
 variant on src1m at every substep size (the serial loop in a tree

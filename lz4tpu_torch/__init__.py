@@ -11,8 +11,7 @@ The device side covers the batched decode (:func:`decompress_to_device`,
 :func:`decompress_device`, ``decompress(backend="device")``) with its
 engines (sparse programs, the fused kernel, the mxu2 kernel, the
 segment-copy kernel, the byte-parallel resolver), checksum
-verification on the device (``verify="device"``), the pipelined
-single-chain decode (``pipelined=True``), the request pipeline
+verification on the device (``verify="device"``), the request pipeline
 (:class:`DecodeSession`: a prep thread with its own CUDA stream) and the
 sharded decode over a mesh of devices and processes
 (:func:`decompress_sharded`, ``lz4tpu_torch.dist``).  The encoder

@@ -21,10 +21,7 @@ wrapper takes it only for CPU tensors and launches the kernel for CUDA
 tensors.
 
 :func:`decode_fused_rows` decodes a whole prep in one launch pair per
-part (:func:`decode_fused`: its bytes chain by chain);
-:func:`decode_fused_pipelined` cuts one chain into 64-substep
-chunks and launches each as soon as its range prep is done, the ring
-carried on the card from chunk to chunk.
+part (:func:`decode_fused`: its bytes chain by chain).
 """
 
 from __future__ import annotations
@@ -950,118 +947,3 @@ def decode_fused(prep: FusedPrep, device="cuda") -> list:
     return [(cid, flat[slo * SUB: slo * SUB + n_out].tobytes())
             for (cid, slo, _shi, n_out) in prep.out_spans]
 
-
-# ---------------------------------------------------------------------------
-# pipelined single-chain decode
-# ---------------------------------------------------------------------------
-
-PIPE_SUBS = 64         # pipelined-chunk substeps (128 KiB output)
-
-
-def decode_fused_pipelined(
-    lit_len: np.ndarray,
-    match_len: np.ndarray,
-    match_off: np.ndarray,
-    lit_src: np.ndarray,
-    buf: np.ndarray,
-    pre: tuple,
-    *,
-    device,
-    pipe_subs: int = PIPE_SUBS,
-    counters: dict | None = None,
-):
-    """Single-chain decode with the host prep pipelined against the
-    device (port of ``lz4tpu.device.fused.decode_fused_pipelined``): the
-    chain is cut into ``pipe_subs``-substep chunks; each chunk's prep
-    runs through the native range prep
-    (``native.prep_fused_pre_range``), is staged through pinned memory
-    without waiting for the stream, and launches kernel H1's expand and
-    route at once, so the host preps chunk k+1 while the card decodes
-    chunk k.  The ring chains on the card between launches (``ring_in``,
-    one ``(0, pipe_subs, carry=1)`` segment).
-
-    Every chunk is exactly ``pipe_subs`` substeps: the tail chunk is
-    padded with zeroed prep content (zero records scatter nothing,
-    zeroed scalars route into in-range pages) and its padded rows lie
-    beyond ``n_out``.
-
-    ``pre`` is the ``native.scan_block_full`` tuple (``SeqTable.pre``)
-    or ``native.prep_phase1``'s.  Returns ``(flat_rows, n_out)``: uint8
-    ``(n_chunks * pipe_subs * SUB,)`` on ``device``; raises
-    FusedOverflow on any budget overflow.
-
-    ``counters``: optional dict filled for tests: ``chunks`` (list of
-    ``(i_lo, i_hi)``), ``prep_done_t`` / ``dispatch_t`` (monotonic
-    stamps per chunk).
-    """
-    import time
-
-    from .. import native
-
-    if not native.available():
-        raise FusedOverflow("pipelined decode requires the native engine")
-    dev = torch.device(device)
-    starts_ext, litpos_ext, lits_flat, _max_off = pre
-    S = lit_len.size
-    n_out = int(starts_ext[S]) if S else 0
-    n_lit = int(litpos_ext[S]) if S else 0
-    n_sub = -(-n_out // SUB) if n_out else 0
-    if n_sub == 0:
-        return torch.zeros(0, dtype=torch.uint8, device=dev), 0
-    n_win = max(1, -(-max(1, n_lit) // LITWIN_Q))
-    n_pad = -(-n_sub // pipe_subs) * pipe_subs
-    _, winq, scal, seqrec, patch, hw = _pool_arrays(n_pad, 1)
-    if n_pad > n_sub:
-        # the tail chunk decodes zeroed substeps (pool buffers come
-        # back dirty); their rows are sliced off
-        winq[n_sub:] = 0
-        scal[n_sub:] = 0
-        seqrec[n_sub:] = 0
-        patch[n_sub:] = 0
-        hw[n_sub:] = 0
-    lits_dev = to_device(_build_windows(lits_flat[:n_lit], n_win), dev)
-    # exact per-substep record-count bound: records are the producing
-    # sequences starting in a substep
-    sizes = lit_len.astype(np.int64) + match_len
-    prod = np.where(sizes > 0)[0]
-    max_recs = (int(np.bincount(
-        starts_ext[prod] // SUB, minlength=1).max()) if prod.size else 0)
-    if max_recs > SEQ_MAX:
-        raise FusedOverflow(
-            f"{max_recs} seq records per substep (budget {SEQ_MAX})"
-        )
-    ll32 = np.ascontiguousarray(lit_len, np.int32)
-    ml32 = np.ascontiguousarray(match_len, np.int32)
-    mo32 = np.ascontiguousarray(match_off, np.int32)
-    ls32 = np.ascontiguousarray(lit_src, np.int32)
-    buf8 = np.ascontiguousarray(buf, np.uint8)
-    segs_first, segs_carry = to_device_packed(
-        [segments_array([(0, pipe_subs, 0)]),
-         segments_array([(0, pipe_subs, 1)])], dev)
-    parts = []
-    ring = None
-    for i_lo in range(0, n_sub, pipe_subs):
-        i_hi = min(i_lo + pipe_subs, n_sub)
-        try:
-            native.prep_fused_pre_range(
-                ll32, ml32, mo32, ls32, buf8, n_win,
-                starts_ext, litpos_ext, lits_flat, n_out,
-                i_lo, i_hi, winq, scal, seqrec, patch, hw,
-            )
-        except ValueError as exc:
-            raise FusedOverflow(str(exc)) from None
-        if counters is not None:
-            counters.setdefault("chunks", []).append((i_lo, i_hi))
-            counters.setdefault("prep_done_t", []).append(time.monotonic())
-        sl = slice(i_lo, i_lo + pipe_subs)
-        _check_windows(winq[sl], scal[sl], n_win)
-        # one staging copy a chunk
-        seqrec_dev, patch_dev, scal_dev, winq_dev = to_device_packed(
-            [seqrec[sl], patch[sl], scal[sl], winq[sl]], dev)
-        pos17 = expand(seqrec_dev, scal_dev, patch_dev)
-        rows, ring = route(pos17, lits_dev, winq_dev, scal_dev,
-                           segs_first if ring is None else segs_carry, ring)
-        if counters is not None:
-            counters.setdefault("dispatch_t", []).append(time.monotonic())
-        parts.append(rows)
-    return (torch.cat(parts) if len(parts) > 1 else parts[0]), n_out

@@ -550,103 +550,56 @@ def _balance_chains(chains, n_dev: int) -> list[list[int]]:
     return groups
 
 
-def _stage_span_unit(u: SpanUnit, device):
-    """Stage one SpanUnit on the current stream; its boundary window
-    (when any) seeds the ring of kernel H1's route."""
-    from . import spans as sp
-    from .device import fused as fu
-
-    ring = (None if u.ring is None
-            else sp.ring_seed_array(u.ring, u.b_lo, device))
-    return fu.stage_fused_rows(u.prep, device, ring_in=ring)
-
-
 def _launch_chain_groups(table, buf: np.ndarray, mesh: Mesh):
     """Launch phase of the sharded decoders: each entry of this process
-    classifies its share like the single-device pipeline (sparse
-    program, mxu2 pack, fused prep, resolver) and decodes it on its own
-    stream.  Every entry's host work and staging runs before any entry
-    launches.  Monolithic fused-class chains split into ring-seeded
-    SpanUnits when there are fewer chains than entries.
+    plans its share like the single-device pipeline
+    (:func:`pipeline.plan_decode` with ``chains=``) and runs it through
+    the pipeline's executor on its own stream: every entry's plan is
+    staged (:func:`pipeline._stage_plan`) before any entry launches
+    (:func:`pipeline._launch_plan`).  Monolithic fused-class chains
+    split into ring-seeded SpanUnits when there are fewer chains than
+    entries.
 
     Returns ``(segs, units)``: ``[(out_lo, uint8 tensor of exactly the
-    unit's length)]`` in the order of ``lz4tpu``'s handles (sparse,
-    spans, mxu2, fused, resolver), each on its entry's device and ready
-    on the caller's stream; and the work units."""
-    from .device import fused as fu
+    unit's length)]``, entry by entry, each on its entry's device and
+    ready on the caller's stream; and the work units."""
+    from . import spans as sp
+    from . import trace
     from .device import mxu2 as mx
-    from .device import sparse_decode as sd
-    from .device import to_device
-    from .pipeline import _resolve_chain, plan_decode
+    from .pipeline import _launch_plan, _stage_plan, plan_decode
 
     units, _split = _work_units(table, buf, mesh.size)
     entries = _mesh_devices(mesh)
     groups = _balance_chains(units, len(entries))
     me = _process_index()
 
-    # (entry, spans [(unit, StagedFused)], plan, comp, dense, fused)
-    staged = []
+    staged = []     # [(entry, _StagedPlan)]
     for e, g in zip(entries, groups):
         if not g or e.process_index != me:
             continue
-        g_chains = [units[i] for i in g if not isinstance(units[i], SpanUnit)]
-        g_spans = [units[i] for i in g if isinstance(units[i], SpanUnit)]
-        with _on(e):
-            spans_e = [(u, _stage_span_unit(u, e.device)) for u in g_spans]
-            plan = comp = dense_e = fused_e = None
-            if g_chains:
-                plan = plan_decode(buf, None, table, chains=g_chains)
-                if plan.sparse or plan.other or plan.dense_pack is not None:
-                    comp = to_device(buf, e.device)
-                dense_e = mx.stage_dense2(plan.dense_pack, e.device, comp)
-                fp = plan.fused_prep
-                if fp is not None and fp.n_sub:
-                    fused_e = fu.stage_fused_rows(fp, e.device)
-        staged.append((e, spans_e, plan, comp, dense_e, fused_e))
+        g_units = [units[i] for i in g]
+        with trace.span("decode.plan"):
+            plan = plan_decode(buf, None, table, chains=[
+                u for u in g_units if not isinstance(u, SpanUnit)])
+        with _on(e), trace.span("decode.engines"):
+            # each span's boundary window (when any) seeds H1's ring
+            rings = [(u.out_lo, u.out_hi - u.out_lo, u.prep,
+                      None if u.ring is None
+                      else sp.ring_seed_array(u.ring, u.b_lo, e.device))
+                     for u in g_units if isinstance(u, SpanUnit)]
+            staged.append((e, _stage_plan(buf, plan, e.device,
+                                          rings=rings)))
 
-    kinds = {k: [] for k in ("sparse", "span", "dense", "fused", "other")}
-    made_by = []
     faults: list = []   # the mxu2 fault flags, read once all have launched
-    for e, spans_e, plan, comp, dense_e, fused_e in staged:
-        made = []
-        made_by.append((e, made))
-        with _on(e, wait=False):      # it waited when it was staged
-            for u, st in spans_e:
-                rows = fu.launch_fused_rows(st)[0]
-                kinds["span"].append((u.out_lo, rows[: u.out_hi - u.out_lo]))
-                made.append(rows)
-            if plan is not None:
-                for chain, prog in plan.sparse:
-                    out = sd.decode_sparse_device(prog, comp)
-                    kinds["sparse"].append(
-                        (chain.out_lo, out[: chain.out_hi - chain.out_lo]))
-                    made.append(out)
-                pack = plan.dense_pack
-                if pack is not None and pack.n_sub:
-                    flat, _ring = mx.decode_dense2_rows(
-                        pack, e.device, staged=dense_e, faults=faults)
-                    made.append(flat)
-                    for chain, (_c, slo, _shi, n) in zip(plan.dense_chains,
-                                                          pack.out_spans):
-                        kinds["dense"].append(
-                            (chain.out_lo, flat[slo * mx.SUB:
-                                                slo * mx.SUB + n]))
-                if fused_e is not None:
-                    flat, _ring = fu.launch_fused_rows(fused_e)
-                    made.append(flat)
-                    for chain, (_c, slo, _shi, n) in zip(
-                            plan.fused_chains, plan.fused_prep.out_spans):
-                        kinds["fused"].append(
-                            (chain.out_lo, flat[slo * fu.SUB:
-                                                slo * fu.SUB + n]))
-                for chain in plan.other:
-                    out = _resolve_chain(buf, table, chain, comp)
-                    kinds["other"].append((chain.out_lo, out))
-                    made.append(out)
+    made_by = []
+    with trace.span("decode.engines"):
+        for e, st in staged:
+            with _on(e, wait=False):      # it waited when it was staged
+                made_by.append((e, _launch_plan(buf, table, st, faults)))
     for e, made in made_by:
-        _join(e, made)
+        _join(e, [t for _lo, t in made])
     mx.raise_on_fault(*faults)
-    return [s for k in kinds.values() for s in k], units
+    return [s for _e, made in made_by for s in made], units
 
 
 def sharded_span_assignment(table, buf: np.ndarray, mesh: Mesh) -> dict:
@@ -748,44 +701,42 @@ def decompress_sharded(data, mesh: Mesh | None = None, reservation=None,
     chains; only chains that cannot split go to the span-sharded
     resolver.  Fault precedence is the streaming engine's: any Lz4Error
     re-derives the diagnostic through ``decompress_host``."""
+    from . import trace
     from .constants import FOR_ALL
     from .errors import Lz4Error
+    from .pipeline import _host_fallback
 
     if reservation is None:
         reservation = FOR_ALL
-    try:
-        return _decompress_sharded_batch(data, mesh, reservation, device)
-    except Lz4Error:
-        from .pipeline import _host_fallback
-
-        return _host_fallback(data, reservation)
+    with trace.span("decode"):
+        try:
+            return _decompress_sharded_batch(data, mesh, reservation,
+                                             device)
+        except Lz4Error:
+            return _host_fallback(data, reservation)
 
 
 def _decompress_sharded_batch(data, mesh: Mesh | None, reservation,
                               device="cuda") -> bytes:
-    from .frame import parse_frames
-    from .pipeline import (BatchCapacityExceeded, _host_fallback,
-                           _verify_checksums, build_seq_table)
+    from . import trace
+    from .pipeline import (BatchCapacityExceeded, _decode_front,
+                           _host_fallback, _verify_checksums)
 
     if mesh is None:
         mesh = make_mesh(device=device)
-    buf = np.frombuffer(bytes(data), dtype=np.uint8)
-    if buf.size == 0:
-        return b""
-    parsed = parse_frames(buf, reservation)
     try:
-        table = build_seq_table(buf, parsed, reservation, data,
-                                pooled_cols=True)
+        buf, parsed, table = _decode_front(data, reservation)
     except BatchCapacityExceeded:
         # the stream decodes past int32 coordinates: the host engine
         return _host_fallback(data, reservation)
-    if table.n_out == 0:
+    if table is None or table.n_out == 0:
         return b""
     if _use_chains(table, mesh.size):
         out = decode_sharded_chains(table, buf, mesh)
     else:
         out = decode_sharded(table, buf, mesh)
-    _verify_checksums(buf, parsed, out, table)
+    with trace.span("decode.verify"):
+        _verify_checksums(buf, parsed, out, table)
     return out.tobytes()
 
 

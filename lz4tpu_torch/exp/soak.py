@@ -407,13 +407,10 @@ def device_paths(device: torch.device, reservation: Reservation,
         paths.append((f"decompress_device(engine={engine!r})", res,
                       lambda f, e=engine: pl.decompress_device(
                           f, res, e, device=dev)))
-    for pipelined in (False, True):
-        for verify in ("host", "device"):
-            name = (f"decompress_to_device(verify={verify!r}"
-                    + (", pipelined=True)" if pipelined else ")"))
-            paths.append((name, res, lambda f, v=verify, p=pipelined:
-                          _host_bytes(pl.decompress_to_device(
-                              f, res, device=dev, verify=v, pipelined=p))))
+    for verify in ("host", "device"):
+        paths.append((f"decompress_to_device(verify={verify!r})", res,
+                      lambda f, v=verify: _host_bytes(pl.decompress_to_device(
+                          f, res, device=dev, verify=v))))
     s_res = session.reservation if session is not None else FOR_ALL
     paths.append(("DecodeSession.result()", s_res,
                   lambda f: session.submit(f).result()))

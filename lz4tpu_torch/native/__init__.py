@@ -119,26 +119,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.lz4tpu_prep_last_ranges.restype = c.c_int64
     lib.lz4tpu_prep_last_ranges.argtypes = [i64p, c.c_int64]
-    lib.lz4tpu_prep_phase1.restype = c.c_int32
-    lib.lz4tpu_prep_phase1.argtypes = [
-        i32p, i32p, i32p, i32p, c.c_int64,       # ll, ml, mo, ls, S
-        u8p, c.c_int64,                           # buf, buf_len
-        i32p, i32p,                               # starts, litpos (S+2)
-        u8p, c.c_int64,                           # lits, lit_cap
-        i64p,                                     # meta [3]
-    ]
-    lib.lz4tpu_prep_fused_pre_range.restype = c.c_int32
-    lib.lz4tpu_prep_fused_pre_range.argtypes = [
-        i32p, i32p, i32p, i32p, c.c_int64,       # ll, ml, mo, ls, S
-        u8p,                                      # buf
-        c.c_int64,                                # n_win
-        i32p, i32p,                               # starts, litpos (S+2)
-        u8p, c.c_int64,                           # lits, n_out
-        c.c_int64, c.c_int64,                     # i_lo, i_hi
-        i32p, i32p, i32p, i32p,                   # winq, scal, seqrec,
-        i32p,                                     # patch, hw
-        i64p,                                     # counts
-    ]
     lib.lz4tpu_resolve_window.restype = c.c_int32
     lib.lz4tpu_resolve_window.argtypes = [
         i32p, i32p, i32p, i32p, c.c_int64,        # ll, ml, mo, ls, S
@@ -593,77 +573,6 @@ def prep_fused_chain_pre(ll, ml, mo, ls, buf, n_win, starts, litpos,
         counts.ctypes.data_as(c.POINTER(c.c_int64)),
         c.c_int32(n_threads if n_threads is not None
                   else pack_threads()),
-    )
-    if st != 0:
-        raise ValueError(_PREP_OVERFLOW.get(st, f"prep status {st}"))
-    return (int(counts[0]), int(counts[1]),
-            int(counts[2]), int(counts[3]))
-
-
-def prep_phase1(ll, ml, mo, ls, buf):
-    """Reconstruct the scan fast-path tuple (pipeline.SeqTable.pre)
-    for an arbitrary single-chain sequence table: size/literal
-    prefixes with sentinels, the extracted flat literal stream, and
-    the chain's max match offset — phase 1 of the fused prep into
-    caller-owned arrays (lz4core.cpp lz4tpu_prep_phase1).  Multi-block
-    chains get the pipelined range prep through this."""
-    c = ctypes
-    i32p = c.POINTER(c.c_int32)
-
-    def ip(a):
-        assert a.dtype == np.int32 and a.flags.c_contiguous
-        return a.ctypes.data_as(i32p)
-
-    S = ll.size
-    ll32 = np.ascontiguousarray(ll, np.int32)
-    ml32 = np.ascontiguousarray(ml, np.int32)
-    mo32 = np.ascontiguousarray(mo, np.int32)
-    ls32 = np.ascontiguousarray(ls, np.int32)
-    buf8 = _as_u8(buf)
-    starts = np.empty(S + 2, np.int32)
-    litpos = np.empty(S + 2, np.int32)
-    n_lit_cap = int(np.sum(ll32, dtype=np.int64)) + 16
-    lits = np.empty(max(n_lit_cap, 16), np.uint8)
-    meta = np.zeros(3, np.int64)
-    st = _get().lz4tpu_prep_phase1(
-        ip(ll32), ip(ml32), ip(mo32), ip(ls32), c.c_int64(S),
-        _u8ptr(buf8), c.c_int64(buf8.size),
-        ip(starts), ip(litpos), _u8ptr(lits), c.c_int64(lits.size),
-        meta.ctypes.data_as(c.POINTER(c.c_int64)),
-    )
-    if st != 0:
-        raise ValueError(f"prep_phase1 status {st}")
-    return starts, litpos, lits[:int(meta[1])], int(meta[2])
-
-
-def prep_fused_pre_range(ll, ml, mo, ls, buf, n_win, starts, litpos,
-                         lits, n_out, i_lo, i_hi,
-                         winq, scal, seqrec, patch, hw=None):
-    """Native fused prep of ONLY substeps [i_lo, i_hi) (the pipelined
-    single-stream decode, fused.decode_fused_pipelined): writes land
-    at GLOBAL substep offsets in the caller's full-size arrays.
-    Content is bit-identical to the whole-chain prep over the range,
-    except the range's first reload flag is forced to 1 (differential-
-    tested).  Returns (n_seq_recs, n_patches, max_recs, max_patches)
-    for the range."""
-    c = ctypes
-    i32p = c.POINTER(c.c_int32)
-
-    def ip(a):
-        assert a.dtype == np.int32 and a.flags.c_contiguous
-        return a.ctypes.data_as(i32p)
-
-    counts = np.zeros(4, np.int64)
-    buf8 = _as_u8(buf)
-    st = _get().lz4tpu_prep_fused_pre_range(
-        ip(ll), ip(ml), ip(mo), ip(ls), c.c_int64(ll.size),
-        _u8ptr(buf8), c.c_int64(n_win),
-        ip(starts), ip(litpos),
-        _u8ptr(lits), c.c_int64(n_out),
-        c.c_int64(i_lo), c.c_int64(i_hi),
-        ip(winq), ip(scal), ip(seqrec), ip(patch),
-        ip(hw) if hw is not None else i32p(),
-        counts.ctypes.data_as(c.POINTER(c.c_int64)),
     )
     if st != 0:
         raise ValueError(_PREP_OVERFLOW.get(st, f"prep status {st}"))

@@ -2263,128 +2263,6 @@ int32_t lz4tpu_prep_fused_pre(
                         n_threads, 0, prof, prof ? fz_now_ns() : 0);
 }
 
-// Phase 1 of the fused prep as a standalone pass into CALLER buffers:
-// the exclusive size/literal prefixes (with the S/S+1 sentinel slots
-// the prep bisects need), the extracted flat literal stream, and the
-// max match offset.  This reconstructs the scan fast-path tuple
-// (pipeline.SeqTable.pre) for MULTI-BLOCK chains, whose per-block
-// scans cannot emit it directly — enabling the pipelined range prep
-// (lz4tpu_prep_fused_pre_range) on any single-chain stream.
-// starts/litpos must hold S+2 entries; lits must hold >= total
-// literal bytes + 16 (wild-copy slack).  Returns 0, or -98 when
-// positions exceed int32 (the batched pipeline never sends this).
-int32_t lz4tpu_prep_phase1(
-    const int32_t* ll, const int32_t* ml, const int32_t* mo,
-    const int32_t* ls, int64_t S,
-    const uint8_t* buf, int64_t buf_len,
-    int32_t* starts, int32_t* litpos,
-    uint8_t* lits, int64_t lit_cap,
-    int64_t* out_meta /* [3]: n_out, n_lit, max_off */) {
-    int64_t out = 0, lp = 0, max_off = 1;
-    for (int64_t s = 0; s < S; ++s) {
-        starts[s] = (int32_t)out;
-        litpos[s] = (int32_t)lp;
-        out += (int64_t)ll[s] + ml[s];
-        lp += ll[s];
-        if (mo[s] > max_off) max_off = mo[s];
-    }
-    if (out >= INT64_C(0x7FFFFFF0) || lp >= INT64_C(0x7FFFFFF0))
-        return -98;
-    starts[S] = (int32_t)out;
-    starts[S + 1] = INT32_C(0x7FFFFFFF);
-    litpos[S] = (int32_t)lp;
-    litpos[S + 1] = (int32_t)lp;
-    // literal extraction: bounded 16-byte wild copies (later runs
-    // overwrite spill; see lz4tpu_prep_fused's phase 1)
-    for (int64_t s = 0; s < S; ++s) {
-        const int64_t n = ll[s];
-        const int64_t rel = litpos[s];
-        uint8_t* d = lits + rel;
-        const uint8_t* q = buf + ls[s];
-        if (n <= 16 && ls[s] >= 0 && ls[s] + 16 <= buf_len
-            && rel + 16 <= lit_cap) {
-            std::memcpy(d, q, 16);
-        } else if (n) {
-            std::memcpy(d, q, (size_t)n);
-        }
-    }
-    out_meta[0] = out;
-    out_meta[1] = lp;
-    out_meta[2] = max_off;
-    return 0;
-}
-
-
-// Prep ONLY substeps [i_lo, i_hi) from precomputed scan outputs — the
-// host side of the PIPELINED single-stream decode (fused.py
-// decode_fused_pipelined): the Python loop preps chunk k+1 while the
-// device decodes chunk k (rings chained on device, launches are
-// async).  Writes land at GLOBAL substep offsets into the full-size
-// output arrays; callers slice afterwards.  Content is bit-identical
-// to the whole-chain prep over the same substeps, except scal[6] of
-// i_lo is forced to 1 (the kernel reloads the literal window at grid
-// step 0 anyway, and a forced reload is always sound).  Range calls
-// on one thread may run in any order; each zeroes its own slot
-// scratch.
-int32_t lz4tpu_prep_fused_pre_range(
-    const int32_t* ll, const int32_t* ml, const int32_t* mo,
-    const int32_t* ls, int64_t S,
-    const uint8_t* buf,
-    int64_t n_win,
-    const int32_t* starts,   // [S + 2] with sentinels
-    const int32_t* litpos,   // [S + 2] with sentinels
-    uint8_t* lits, int64_t n_out,
-    int64_t i_lo, int64_t i_hi,
-    int32_t* winq, int32_t* scal, int32_t* seqrec, int32_t* patch,
-    int32_t* hw,
-    int64_t* out_counts) {
-    fz_arena* A = fz_arena_get();
-    const int64_t n_sub = (n_out + FZ_SUB - 1) / FZ_SUB;
-    const int64_t nsub1 = n_sub ? n_sub : 1;
-    if (i_lo < 0 || i_hi > n_sub || i_lo >= i_hi) return -97;
-    if (fz_arena_reserve(A, 0, 4 * nsub1 + S + 9)) return -99;
-    int32_t* wb_arr = A->i32;
-    int32_t* counts = A->i32 + nsub1;
-    int32_t* rec_counts = A->i32 + 2 * nsub1;
-    int32_t* so_arr = A->i32 + 3 * nsub1;
-    memset(counts + i_lo, 0, (size_t)(i_hi - i_lo) * 4);
-    memset(rec_counts + i_lo, 0, (size_t)(i_hi - i_lo) * 4);
-    fz_ctx c = { ll, ml, mo, ls, S, buf, 0, n_win, lits, winq,
-                 scal, seqrec, patch, counts, rec_counts, starts,
-                 litpos, wb_arr, so_arr, hw, n_sub, n_out };
-    int32_t ret = fz_scal_range(&c, i_lo, i_hi, wb_arr);
-    if (ret == 0 && i_hi < n_sub) {
-        // fz_patch_seq bisects inside [so_arr[si], so_arr[si+1] + 1);
-        // the range's last substep needs the NEXT substep's owner
-        so_arr[i_hi] = (int32_t)fz_owner(starts, S + 1, i_hi * FZ_SUB);
-    }
-    int64_t nrec = 0, npat = 0;
-    if (ret == 0) ret = fz_records_range(&c, i_lo, i_hi, &nrec);
-    if (ret == 0) ret = fz_patch_range(&c, i_lo, i_hi, &npat);
-    if (ret == 0) {
-        fz_zero_tails(&c, i_lo, i_hi);
-        int32_t max_rc = 0, max_pc = 0;
-        for (int64_t i = i_lo; i < i_hi; ++i) {
-            if (i == i_lo || winq[i] != winq[i - 1]
-                    || scal[i * 8 + 2] != scal[(i - 1) * 8 + 2])
-                scal[i * 8 + 6] = 1;
-            if (rec_counts[i] > max_rc) max_rc = rec_counts[i];
-            if (counts[i] > max_pc) max_pc = counts[i];
-        }
-        out_counts[0] = nrec;
-        out_counts[1] = npat;
-        out_counts[2] = max_rc;
-        out_counts[3] = max_pc;
-    } else if (hw) {
-        for (int64_t i = i_lo; i < i_hi; ++i) {
-            hw[2 * i] = FZ_SEQ_MAX;
-            hw[2 * i + 1] = FZ_PATCH_MAX;
-        }
-    }
-    return ret;
-}
-
-
 int32_t lz4tpu_prep_fused(
     const int32_t* ll, const int32_t* ml, const int32_t* mo,
     const int32_t* ls, int64_t S,

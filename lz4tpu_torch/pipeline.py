@@ -36,8 +36,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
-import os
 import threading
 
 import numpy as np
@@ -614,13 +612,28 @@ def plan_decode(buf: np.ndarray, parsed, table: SeqTable,
     return plan
 
 
-def count_parsed(parsed: ParseResult) -> None:
-    """The counters ``decode.frames`` and ``decode.blocks`` of one
-    request's parse, where a recording is open."""
+def _decode_front(data, reservation: Reservation) -> tuple:
+    """The front of every decode request, whatever entry it comes in
+    by: the bytes as a buffer, the frame parse (span ``decode.parse``;
+    counters ``decode.frames`` and ``decode.blocks``, where a recording
+    is open) and the token scan into one sequence table (span
+    ``decode.scan``, its columns in the thread's scan scratch);
+    ``(buf, parsed, table)``, or ``(buf, None, None)`` for an empty
+    input.  ``BatchCapacityExceeded`` goes to the caller: each entry has
+    its own answer to it."""
+    buf = np.frombuffer(bytes(data), dtype=np.uint8)
+    if buf.size == 0:
+        return buf, None, None
+    with trace.span("decode.parse"):
+        parsed = parse_frames(buf, reservation)
     if trace.active():
         trace.count("decode.frames", len(parsed.frames))
         trace.count("decode.blocks",
                     sum(len(f.blocks) for f in parsed.frames))
+    with trace.span("decode.scan"):
+        table = build_seq_table(buf, parsed, reservation, data,
+                                pooled_cols=True)
+    return buf, parsed, table
 
 
 def _verify_checksums_device(
@@ -752,50 +765,99 @@ def _resolve_chain(buf: np.ndarray, table: SeqTable, chain,
     )
 
 
-def build_device_segments(buf: np.ndarray, table: SeqTable,
-                          plan: DecodePlan, device,
-                          comp_dev: torch.Tensor | None = None,
-                          faults: list | None = None) -> list:
-    """Execute a DecodePlan on ``device``: ``[(out_lo, uint8 tensor of
-    exactly the chain's length)]``.  ``comp_dev``: the compressed
-    buffer already staged on ``device``, reused by the sparse programs,
-    the mxu2 codes and the resolver.  ``faults``: where given, the mxu2
+@dataclasses.dataclass
+class _StagedPlan:
+    """A DecodePlan's inputs on its device (:func:`_stage_plan`), ready
+    for :func:`_launch_plan`."""
+
+    plan: DecodePlan
+    device: torch.device
+    comp: torch.Tensor | None    # the compressed buffer
+    dense: tuple | None          # mxu2.stage_dense2's tensors
+    fused: object                # device.fused.StagedFused | None
+    rings: list                  # [(out_lo, n_out, StagedFused)]
+
+
+def _stage_plan(buf: np.ndarray, plan: DecodePlan, device,
+                comp_dev: torch.Tensor | None = None,
+                rings=()) -> _StagedPlan:
+    """The executor's first step: the host work and the copies of
+    ``plan`` on ``device``, queued on the current stream, nothing
+    launched: the compressed buffer once (``comp_dev``: where the caller
+    staged it already), the mxu2 engine's inputs and the fused prep.
+    ``rings``: ``[(out_lo, n_out, FusedPrep, ring tensor or None)]``,
+    spans of one chain that kernel H1 routes from a boundary ring (the
+    sharded decode's span units)."""
+    dev = torch.device(device)
+    if comp_dev is None and (plan.sparse or plan.other
+                             or plan.dense_pack is not None):
+        comp_dev = to_device(buf, dev)
+    fp = plan.fused_prep
+    return _StagedPlan(
+        plan=plan, device=dev, comp=comp_dev,
+        dense=mx.stage_dense2(plan.dense_pack, dev, comp_dev),
+        fused=(fu.stage_fused_rows(fp, dev)
+               if fp is not None and fp.n_sub else None),
+        rings=[(lo, n, fu.stage_fused_rows(prep, dev, ring_in=ring))
+               for lo, n, prep, ring in rings])
+
+
+def _launch_plan(buf: np.ndarray, table: SeqTable, st: _StagedPlan,
+                 faults: list | None = None) -> list:
+    """The executor's second step: queue the engines of a staged plan
+    on the current stream: ``[(out_lo, uint8 tensor of exactly the
+    chain's length)]``, ring-seeded spans first, then sparse, mxu2,
+    fused and resolver chains.  ``faults``: where given, the mxu2
     engine's fault flags go there unread, for the caller to read with
     ``mxu2.raise_on_fault`` once it synchronises
     (``mxu2.decode_dense2_rows``); else that engine reads them as it
     launches."""
-    dev = torch.device(device)
+    plan, segs = st.plan, []
+    for lo, n, staged in st.rings:
+        with trace.span("decode.engine.fused"):
+            segs.append((lo, fu.launch_fused_rows(staged)[0][:n]))
+    for chain, prog in plan.sparse:
+        with trace.span("decode.engine.sparse"):
+            segs.append((chain.out_lo, sp.decode_sparse_device(
+                prog, st.comp)[:chain.out_hi - chain.out_lo]))
+    if plan.dense_pack is not None:
+        with trace.span("decode.engine.dense"):
+            flat, _ring = mx.decode_dense2_rows(
+                plan.dense_pack, st.device, staged=st.dense, faults=faults)
+            segs += _chain_rows(plan.dense_chains, plan.dense_pack, flat,
+                                mx.SUB)
+    if st.fused is not None:
+        with trace.span("decode.engine.fused"):
+            flat, _ring = fu.launch_fused_rows(st.fused)
+            segs += _chain_rows(plan.fused_chains, plan.fused_prep, flat,
+                                fu.SUB)
+    for chain in plan.other:
+        with trace.span("decode.engine.resolve"):
+            segs.append((chain.out_lo,
+                         _resolve_chain(buf, table, chain, st.comp)))
+    return segs
+
+
+def _chain_rows(chains: list, prep, flat: torch.Tensor, sub: int) -> list:
+    """Each chain's bytes in a pack's or a prep's flat rows, as
+    ``[(out_lo, uint8 tensor)]``."""
+    return [(chain.out_lo, flat[slo * sub: slo * sub + out_len])
+            for chain, (_c, slo, _shi, out_len) in zip(chains,
+                                                       prep.out_spans)]
+
+
+def build_device_segments(buf: np.ndarray, table: SeqTable,
+                          plan: DecodePlan, device,
+                          comp_dev: torch.Tensor | None = None,
+                          faults: list | None = None) -> list:
+    """Execute a DecodePlan on ``device`` (:func:`_stage_plan`, then
+    :func:`_launch_plan`): ``[(out_lo, uint8 tensor of exactly the
+    chain's length)]``.  ``comp_dev``: the compressed buffer already
+    staged on ``device``, reused by the sparse programs, the mxu2 codes
+    and the resolver.  ``faults``: as :func:`_launch_plan`'s."""
     with trace.span("decode.engines"):
-        segs: list = []
-        if (plan.sparse or plan.other or plan.dense_pack is not None) \
-                and comp_dev is None:
-            comp_dev = to_device(buf, dev)
-        for chain, prog in plan.sparse:
-            n_c = chain.out_hi - chain.out_lo
-            with trace.span("decode.engine.sparse"):
-                segs.append((chain.out_lo,
-                             sp.decode_sparse_device(prog, comp_dev)[:n_c]))
-        for name, rows_of, prep, chains, sub in (
-            ("decode.engine.dense",
-             functools.partial(mx.decode_dense2_rows, comp_dev=comp_dev,
-                               faults=faults),
-             plan.dense_pack, plan.dense_chains, mx.SUB),
-            ("decode.engine.fused", fu.decode_fused_rows, plan.fused_prep,
-             plan.fused_chains, fu.SUB),
-        ):
-            if prep is None:
-                continue
-            with trace.span(name):
-                flat, _ring = rows_of(prep, dev)
-                for chain, (_c, slo, _shi, out_len) in zip(chains,
-                                                           prep.out_spans):
-                    segs.append((chain.out_lo,
-                                 flat[slo * sub: slo * sub + out_len]))
-        for chain in plan.other:
-            with trace.span("decode.engine.resolve"):
-                segs.append((chain.out_lo,
-                             _resolve_chain(buf, table, chain, comp_dev)))
-        return segs
+        return _launch_plan(buf, table, _stage_plan(buf, plan, device,
+                                                    comp_dev), faults)
 
 
 def assemble_device_segments(segs: list, n_out: int, device) -> torch.Tensor:
@@ -809,51 +871,6 @@ def assemble_device_segments(segs: list, n_out: int, device) -> torch.Tensor:
         for lo, arr in segs:
             out[lo:lo + arr.shape[0]] = arr
     return out
-
-
-def _pipelined_rows(buf: np.ndarray, table: SeqTable, dev: torch.device,
-                    pipelined: bool | None) -> torch.Tensor | None:
-    """Try the pipelined single-chain fused decode (prep chunks
-    interleaved with asynchronous launches,
-    ``device.fused.decode_fused_pipelined``); returns the uint8 tensor
-    on ``dev``, or None when not applicable or on a budget overflow (the
-    caller then runs the monolithic plan).
-
-    Opt-in: ``pipelined=True``, or ``LZ4TPU_PIPELINE=1`` when
-    ``pipelined`` is None."""
-    if pipelined is None:
-        pipelined = os.environ.get("LZ4TPU_PIPELINE", "0") == "1"
-    if not pipelined:
-        return None
-    from . import native
-
-    if not native.available():
-        return None
-    chains = _chains_of(table)
-    if len(chains) != 1:
-        return None
-    c = chains[0]
-    if c.seq_hi - c.seq_lo <= _SPARSE_MAX_SEQS:
-        return None
-    if c.out_hi - c.out_lo > _FUSED_MAX_CHAIN_OUT:
-        return None
-    pre = table.pre
-    if pre is None:
-        # multi-block single-chain stream: the per-block scans cannot
-        # emit the fast-path tuple, so reconstruct it (native phase-1
-        # pass over the chain's columns: O(S + literal bytes))
-        pre = native.prep_phase1(
-            table.lit_len, table.match_len, table.match_off,
-            table.lit_src, buf,
-        )
-    try:
-        flat, n_out = fu.decode_fused_pipelined(
-            table.lit_len, table.match_len, table.match_off,
-            table.lit_src, buf, pre, device=dev,
-        )
-    except fu.FusedOverflow:
-        return None
-    return flat[:n_out]
 
 
 def _resolve_device(device) -> torch.device:
@@ -899,17 +916,13 @@ def decompress_to_device(
     was) and ``out`` is returned.  Raises ``ValueError`` if it is too
     small, not 1-D uint8, or on another device.
 
-    pipelined: ``True`` (or ``LZ4TPU_PIPELINE=1`` in the environment
-    when left None) decodes a single text chain chunk by chunk, the
-    host's prep of chunk k+1 overlapping the card's decode of chunk k
-    (:func:`_pipelined_rows`); inputs it does not fit, and fused-budget
-    overflows, take the monolithic plan as without it.
+    pipelined: accepted for calls written for ``lz4tpu`` and not read:
+    the port decodes every input by the one plan.
     """
     dev = _resolve_device(device)
     with trace.span("decode"):
         try:
-            res = _decompress_to_device_batch(data, reservation, dev, verify,
-                                              pipelined)
+            res = _decompress_to_device_batch(data, reservation, dev, verify)
         except Lz4Error:
             # stream-order fault precedence: the streaming engine
             # re-derives the diagnostic; if it succeeds (batch-only
@@ -938,26 +951,16 @@ def _write_into(res: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 
 def _decompress_to_device_batch(data, reservation, dev: torch.device,
-                                verify: str,
-                                pipelined: bool | None = None
-                                ) -> torch.Tensor:
-    buf = np.frombuffer(bytes(data), dtype=np.uint8)
-    if buf.size == 0:
-        return torch.zeros(0, dtype=torch.uint8, device=dev)
-    with trace.span("decode.parse"):
-        parsed = parse_frames(buf, reservation)
-    count_parsed(parsed)
+                                verify: str) -> torch.Tensor:
     try:
-        with trace.span("decode.scan"):
-            table = build_seq_table(buf, parsed, reservation, data,
-                                    pooled_cols=True)
+        buf, parsed, table = _decode_front(data, reservation)
     except BatchCapacityExceeded as e:
         raise ValueError(
             "decompress_to_device: stream decodes past 2**31-1 bytes, "
             "beyond the batched pipeline's int32 coordinates; split the "
             "input by frame or use the streaming host engine"
         ) from e
-    if table.n_out == 0:
+    if table is None or table.n_out == 0:
         return torch.zeros(0, dtype=torch.uint8, device=dev)
     comp_dev = None
     if verify == "device" and any(
@@ -968,16 +971,14 @@ def _decompress_to_device_batch(data, reservation, dev: torch.device,
         # stage once: the batched per-block xxh32 kernel hashes the
         # compressed bytes on the device, and sparse programs reuse it
         comp_dev = to_device(buf, dev)
-    out_dev = _pipelined_rows(buf, table, dev, pipelined)
-    if out_dev is None:
-        with trace.span("decode.plan"):
-            plan = plan_decode(buf, parsed, table)
-        faults: list = []
-        segs = build_device_segments(buf, table, plan, dev,
-                                     comp_dev=comp_dev, faults=faults)
-        out_dev = assemble_device_segments(segs, table.n_out, dev)
-        # every launch is queued: the one wait for the mxu2 codes' flag
-        mx.raise_on_fault(*faults)
+    with trace.span("decode.plan"):
+        plan = plan_decode(buf, parsed, table)
+    faults: list = []
+    segs = build_device_segments(buf, table, plan, dev, comp_dev=comp_dev,
+                                 faults=faults)
+    out_dev = assemble_device_segments(segs, table.n_out, dev)
+    # every launch is queued: the one wait for the mxu2 codes' flag
+    mx.raise_on_fault(*faults)
     if verify == "host":
         with trace.span("decode.verify"):
             _verify_checksums(buf, parsed, out_dev.cpu().numpy(), table)
@@ -1035,20 +1036,14 @@ def _decompress_device_batch(
     dev: torch.device,
     stats: DecodeStats | None,
 ) -> bytes:
-    buf = np.frombuffer(bytes(data), dtype=np.uint8)
-    if buf.size == 0:
-        return b""
-    with trace.span("decode.parse"):
-        parsed = parse_frames(buf, reservation)
-    count_parsed(parsed)
     try:
-        with trace.span("decode.scan"):
-            table = build_seq_table(buf, parsed, reservation, data,
-                                    pooled_cols=True)
+        buf, parsed, table = _decode_front(data, reservation)
     except BatchCapacityExceeded:
         # stream decodes past int32 coordinates: the size-unbounded
         # streaming host engine takes over
         return _host_fallback(data, reservation)
+    if table is None:
+        return b""
     if stats is not None:
         stats.comp_bytes = buf.size
         stats.out_bytes = table.n_out

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from . import pipeline as pl
+from . import trace
 from .constants import FOR_ALL, Reservation
 from .device import mxu2 as mx
 from .device import to_device
@@ -302,11 +303,12 @@ class DecodeSession:
                     ticket._fail(e)
 
     def _prep_one(self, ticket: DecodeTicket, data: bytes) -> None:
-        try:
-            self._prep_batch(ticket, data)
-        except Lz4Error as e:
-            # the prep loop hands what this raises to the ticket
-            self._rederive(data, e)
+        with trace.span("decode"):
+            try:
+                self._prep_batch(ticket, data)
+            except Lz4Error as e:
+                # the prep loop hands what this raises to the ticket
+                self._rederive(data, e)
 
     def _rederive(self, data: bytes, fault: Lz4Error):
         """Stream-order fault precedence, as ``decompress_to_device``:
@@ -322,24 +324,19 @@ class DecodeSession:
         ) from fault
 
     def _prep_batch(self, ticket: DecodeTicket, data: bytes) -> None:
-        buf = np.frombuffer(data, dtype=np.uint8)
-        if buf.size == 0:
-            ticket._finish(buf, None, None, [])
-            return
-        parsed = pl.parse_frames(buf, self.reservation)
-        pl.count_parsed(parsed)
         try:
-            table = pl.build_seq_table(buf, parsed, self.reservation,
-                                       data, pooled_cols=True)
+            buf, parsed, table = pl._decode_front(data, self.reservation)
         except pl.BatchCapacityExceeded:
             # the streaming host engine fully verifies checksums itself
             ticket._out_np = pl._host_fallback(data, self.reservation)
             ticket._verified = True
             ticket._done.set()
             return
-        if table.n_out == 0:
+        if table is None or table.n_out == 0:
             ticket._finish(buf, parsed, table, [])
             return
+        with trace.span("decode.plan"):
+            plan = pl.plan_decode(buf, parsed, table)
         # Enqueue the device work (shared with decompress_to_device):
         # staging and launches do not wait for the stream, so this
         # returns once the kernels are queued and the card overlaps the
@@ -347,9 +344,8 @@ class DecodeSession:
         # the mxu2 fault flags are read by the collector, not here: the
         # next request's prep does not wait for this one's kernels
         faults: list = []
-        segs = pl.build_device_segments(
-            buf, table, pl.plan_decode(buf, parsed, table), self.device,
-            faults=faults)
+        segs = pl.build_device_segments(buf, table, plan, self.device,
+                                        faults=faults)
         event = (self._stream.record_event()
                  if self._stream is not None else None)
         ticket._finish(buf, parsed, table, segs, event, faults)

@@ -77,7 +77,7 @@ def test_kernel_table_names_every_kernel_of_the_port():
 
 @pytest.mark.parametrize("phase", ["kernel_phase", "to_device_path",
                                    "decompress_device_path", "ab_path",
-                                   "pipelined_path", "session_path",
+                                   "session_path",
                                    "verify_compare", "sustained_phase",
                                    "staging_phase", "busy_phase",
                                    "error_phase", "soak_phase",
@@ -90,7 +90,7 @@ def test_main_drives_every_phase(phase):
     assert callable(getattr(smoke, phase))
     main_src = (REPO / "chip_smoke.py").read_text().split("def main()")[1]
     assert f"{phase}(" in main_src
-    for path in ("ab", "pipelined", "session", "sharded", "encode",
+    for path in ("ab", "session", "sharded", "encode",
                  "soak", "wheel", "numpy_prep"):
         assert f'paths["{path}"]' in main_src
 

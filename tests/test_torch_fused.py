@@ -437,3 +437,57 @@ def test_real_prep_holds_the_gather_edges_and_matches_golden():
         assert found[k] > 100, (k, found)
     flat, _ring = _rows(prep_t)
     assert np.array_equal(flat, jfu.golden_decode(prep_j))
+
+
+def _mixed_arrays(seed):
+    rng = np.random.default_rng(seed)
+    ro = np.frombuffer(bytes(rng.integers(0, 256, 77, dtype=np.uint8)),
+                       np.uint8)                       # read-only
+    return [rng.integers(-2**31, 2**31 - 1, (5, 8), dtype=np.int32),
+            ro,
+            rng.integers(0, 100, (3, 2, 8, 9), dtype=np.int32)[::1],
+            np.zeros((0, 3), np.int32),
+            rng.integers(0, 2, 300).astype(bool),
+            rng.integers(0, 2**40, 7, dtype=np.int64)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_to_device_packed_equals_to_device(seed):
+    """One packed staging copy hands back what one copy per array does:
+    same values, dtypes and shapes (on the CPU: the same tensors)."""
+    from lz4tpu_torch.device import to_device, to_device_packed
+
+    arrays = _mixed_arrays(seed)
+    packed = to_device_packed(arrays, "cpu")
+    assert len(packed) == len(arrays)
+    for a, got in zip(arrays, packed):
+        want = to_device(a, "cpu")
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want)
+        assert np.array_equal(got.numpy(), a)
+    assert to_device_packed([], "cpu") == []
+
+
+def test_prep_pool_is_per_thread():
+    """Two threads that prepare at once never share a pooled buffer:
+    each thread rotates through a pool of its own."""
+    import threading
+
+    got = {}
+
+    def take(name):
+        got[name] = [tfu._pool_arrays(64, 4096)[1]
+                     for _ in range(2 * tfu._POOL_DEPTH)]
+
+    threads = [threading.Thread(target=take, args=(n,)) for n in "ab"]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    take("main")
+    bases = {n: {a.__array_interface__["data"][0] for a in arrs}
+             for n, arrs in got.items()}
+    for n in bases:
+        assert len(bases[n]) == tfu._POOL_DEPTH          # rotation
+    assert not (bases["a"] & bases["b"])
+    assert not (bases["main"] & (bases["a"] | bases["b"]))

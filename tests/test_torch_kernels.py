@@ -365,15 +365,15 @@ def test_harness_runs_on_card(cuda):
 
 
 def test_pipelined_on_card(cuda):
+    """``pipelined=True`` is accepted and not read: the one plan decodes
+    the chain, one launch pair of kernel H1."""
     blob = _frag_text(700_000, 21)
     data = lz4tpu_torch.compress(blob)
     before = dict(_kernels.LAUNCHES)
     out = lz4tpu_torch.decompress_to_device(data, pipelined=True)
     assert out.cpu().numpy().tobytes() == blob
-    n_chunks = -(-(-(-len(blob) // tfu.SUB)) // tfu.PIPE_SUBS)
-    assert _kernels.LAUNCHES["fused_route"] == before["fused_route"] + n_chunks
-    assert (_kernels.LAUNCHES["fused_expand"]
-            == before["fused_expand"] + n_chunks)
+    assert _kernels.LAUNCHES["fused_route"] == before["fused_route"] + 1
+    assert _kernels.LAUNCHES["fused_expand"] == before["fused_expand"] + 1
 
 
 def test_session_on_card(cuda):

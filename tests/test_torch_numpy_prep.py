@@ -40,8 +40,7 @@ from lz4tpu_torch.device import mxu2 as tmx
 # the native functions the numpy path replaces: none may run with the
 # engine off
 NATIVE_PREP = ("prep_fused_chain", "prep_fused_chain_pre",
-               "prep_fused_pre_range", "prep_phase1", "pack_dense2_chain",
-               "resolve_window")
+               "pack_dense2_chain", "resolve_window")
 
 
 def _frag_text(n: int, seed: int) -> bytes:

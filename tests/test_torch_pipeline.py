@@ -35,6 +35,20 @@ def _src_text(n: int) -> bytes:
     return blob[:n]
 
 
+def _mono_payload(size: int, seed: int = 3) -> bytes:
+    """An 8 KiB block of printable bytes repeated with 60 bytes changed
+    each time: one fused chain of long matches at offset 8192."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(32, 127, 8192, dtype=np.uint8)
+    chunks = []
+    for _ in range(size // 8192 + 2):
+        b = base.copy()
+        idx = rng.integers(0, 8192, 60)
+        b[idx] = rng.integers(32, 127, 60)
+        chunks.append(b.tobytes())
+    return b"".join(chunks)[:size]
+
+
 def _rand(n: int, seed: int) -> bytes:
     return np.random.default_rng(seed).integers(
         0, 256, n, dtype=np.uint8).tobytes()
@@ -83,6 +97,10 @@ SLICE_CASES = {
     "bmc7": (lambda: _frag_text(120_000, 7), dict(block_max_code=7,
                                                    content_checksum=False)),
     "legacy": (lambda: _frag_text(100_000, 8), dict(frame_format="legacy")),
+    "mono-400k": (lambda: _mono_payload(400 * 1024),
+                  dict(block_max_code=7)),
+    "mono-150k": (lambda: _mono_payload(150 * 1024),
+                  dict(block_max_code=7)),
 }
 
 
@@ -181,12 +199,16 @@ def _corruptions():
     content[-1] ^= 0x01                   # content checksum
     header = bytearray(data)
     header[5] ^= 0x10                     # descriptor: header checksum
+    mono = bytearray(lz4tpu.compress(_mono_payload(160 * 1024, seed=8),
+                                     block_max_code=7))
+    mono[-1] ^= 0x01                      # content checksum
     return {
         "block_checksum": bytes(flip),
         "content_checksum": bytes(content),
         "truncated": data[:-37],
         "header": bytes(header),
         "bad_magic": b"\x00\x01\x02\x03" + data[4:],
+        "mono_content_checksum": bytes(mono),
     }
 
 
@@ -263,9 +285,9 @@ def test_cuda_without_cuda_raises(monkeypatch):
         lz4tpu_torch.decompress_to_device(lz4tpu.compress(b"abc"))
 
 
-def test_ported_pieces_decode_and_encode(monkeypatch):
-    """The pieces once left to port work: the pipelined decode, the
-    session and the sharded decode decode, and the device encoder
+def test_ported_pieces_decode_and_encode():
+    """The pieces once left to port work: ``pipelined=`` is accepted,
+    the session and the sharded decode decode, and the device encoder
     (``compress(backend=)``, ``dist.compress_sharded``) writes
     lz4tpu's bytes."""
     import lz4tpu.dist
@@ -275,9 +297,6 @@ def test_ported_pieces_decode_and_encode(monkeypatch):
     data = lz4tpu.compress(b"abc" * 100)
     out = lz4tpu_torch.decompress_to_device(data, device="cpu",
                                             pipelined=True)
-    assert out.numpy().tobytes() == b"abc" * 100
-    monkeypatch.setenv("LZ4TPU_PIPELINE", "1")
-    out = lz4tpu_torch.decompress_to_device(data, device="cpu")
     assert out.numpy().tobytes() == b"abc" * 100
     with lz4tpu_torch.DecodeSession(device="cpu") as s:
         assert s.submit(data).result() == b"abc" * 100

@@ -49,7 +49,8 @@ for engine in ("auto", "pallas", "resolve"):
     assert lz4tpu_torch.decompress_device(
         data, engine=engine, device="cpu") == small, engine
 assert lz4tpu_torch.decompress(data, backend="host") == small
-# the pipelined decode, the session and the A/B harness's host side
+# the keyword pipelined= (accepted, not read), the session and the A/B
+# harness's host side
 out = lz4tpu_torch.decompress_to_device(
     lz4tpu_torch.compress(text), device="cpu", pipelined=True)
 assert out.numpy().tobytes() == text

@@ -344,6 +344,20 @@ def test_verify_device_block_fault_before_content_fault_in_one_frame():
     assert "Declared checksum" in results[0][1]
 
 
+def _mono_payload(size: int, seed: int = 3) -> bytes:
+    """An 8 KiB block of printable bytes repeated with 60 bytes changed
+    each time: one fused chain of long matches at offset 8192."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(32, 127, 8192, dtype=np.uint8)
+    chunks = []
+    for _ in range(size // 8192 + 2):
+        b = base.copy()
+        idx = rng.integers(0, 8192, 60)
+        b[idx] = rng.integers(32, 127, 60)
+        chunks.append(b.tobytes())
+    return b"".join(chunks)[:size]
+
+
 def _corruptions():
     blob = _frag_text(30_000, 14)
     data = lz4tpu.compress(blob, block_checksum=True, block_max_code=4)
@@ -351,8 +365,12 @@ def _corruptions():
     flip[200] ^= 0x40
     content = bytearray(lz4tpu.compress(blob))
     content[-1] ^= 0x01
+    mono = bytearray(lz4tpu.compress(_mono_payload(160 * 1024, seed=8),
+                                     block_max_code=7))
+    mono[-1] ^= 0x01
     return {"block_checksum": bytes(flip),
             "content_checksum": bytes(content),
+            "mono_content_checksum": bytes(mono),
             "truncated": data[:-37],
             "bad_magic": b"\x00\x01\x02\x03" + data[4:]}
 
