@@ -341,6 +341,8 @@ def _bench_files(args) -> int:
             if st.device_codes:
                 print(f"  dense_codes={st.dense_codes_s * 1e3:.2f}ms "
                       f"device_codes={st.device_codes}", file=sys.stderr)
+            if st.arena_blocks:
+                print(f"  arena_blocks={st.arena_blocks}", file=sys.stderr)
     if t_total:
         print(
             f"TOTAL: {total_out / t_total / 1e6:.1f} MB/s decompressed",

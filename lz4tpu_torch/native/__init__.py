@@ -30,6 +30,7 @@ E_MATCH_AFTER_LIT = 3
 E_TRUNCATED = 4
 E_DST_OVERFLOW = 5
 E_SEQ_OVERFLOW = 6
+E_COORD_RANGE = 7
 
 
 def _build() -> None:
@@ -64,10 +65,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lz4tpu_decode_block_ring.argtypes = [
         u8p, c.c_int64, u8p, c.c_int64, c.c_int64, c.c_int64, i64p, i64p,
     ]
-    lib.lz4tpu_scan_sequences.restype = c.c_int64
-    lib.lz4tpu_scan_sequences.argtypes = [
-        u8p, c.c_int64, c.c_int64, c.c_int64,
-        i32p, i32p, i32p, i32p, i32p, c.c_int64, i64p, i64p,
+    lib.lz4tpu_scan_frames.restype = c.c_int64
+    lib.lz4tpu_scan_frames.argtypes = [
+        u8p, i64p, c.c_int64, c.c_int64,          # buf, blocks, n, lim
+        i32p, i32p, i32p, i32p, i32p, c.c_int64,  # columns, cap
+        i64p, i32p,                               # res, status
     ]
     lib.lz4tpu_compress_block.restype = c.c_int64
     lib.lz4tpu_compress_block.argtypes = [
@@ -230,60 +232,44 @@ def decode_block_ring(
 _scan_arena = threading.local()
 
 
-def scan_sequences(
-    src, lit_base: int = 0, out_base: int = 0, pooled: bool = False
-) -> tuple[int, np.ndarray, np.ndarray, np.ndarray, np.ndarray,
-           np.ndarray, int, int]:
-    """Token-scan a raw block into a structure-of-arrays sequence table.
+def scan_frames(buf: np.ndarray, blocks: np.ndarray, lim: int
+                ) -> tuple[int, int, np.ndarray, tuple]:
+    """Token-scan every block of a request, in stream order, into one
+    global sequence table (lz4core.cpp ``lz4tpu_scan_frames``).
 
-    Returns (status, out_start, lit_len, lit_src, match_len, match_off,
-    total_out, min_reach).  Status 0 = OK, otherwise one of the E_*
-    codes.  `lit_base` offsets lit_src (the block's position inside the
-    whole stream); `out_base` offsets out_start (the block's global
-    output position); `min_reach` is the lowest global output position
-    any back-reference touches (2**63-1 when the block has no matches).
+    ``blocks``: int64 ``(n, 3)`` rows ``(comp_off, comp_len,
+    is_compressed)`` into ``buf``.  Returns ``(done, status, res,
+    cols)``: the blocks committed (``n`` when none failed), the status
+    of block ``done`` (``OK`` when none failed; ``E_COORD_RANGE`` where
+    one of its coordinates would pass ``lim``), ``res`` int64 ``(n, 3)``
+    rows ``(n_seq, total, min_reach)`` (``min_reach`` global, 2**63-1
+    without a match; rows past ``done`` unset), and the five int32
+    columns ``(out_start, lit_len, lit_src, match_len, match_off)`` of
+    the committed blocks' sequences at global coordinates.
 
-    ``pooled=True`` returns views into per-thread grow-only scratch
-    (warm pages — fresh multi-MB np.empty costs ~1 ms of first-touch
-    faults per request): the views are INVALIDATED by this thread's
-    next pooled scan, so the caller must copy before then
-    (build_seq_table's column concatenation is that copy).
-    """
-    arr = _as_u8(src)
-    # Worst case: one sequence per input byte (token-only degenerate) —
-    # in valid streams a sequence is >= 2 bytes except the last; +8 slack.
-    cap = arr.size + 8
-    if pooled:
-        bufs = getattr(_scan_arena, "bufs", None)
-        if bufs is None or bufs[0].size < cap:
-            cap_r = max(1 << 16, 1 << (cap - 1).bit_length())
-            bufs = tuple(np.empty(cap_r, np.int32) for _ in range(5))
-            _scan_arena.bufs = bufs
-        out_start, lit_len, lit_src, match_len, match_off = bufs
-    else:
-        out_start = np.empty(cap, dtype=np.int32)
-        lit_len = np.empty(cap, dtype=np.int32)
-        lit_src = np.empty(cap, dtype=np.int32)
-        match_len = np.empty(cap, dtype=np.int32)
-        match_off = np.empty(cap, dtype=np.int32)
-    total = ctypes.c_int64(0)
-    reach = ctypes.c_int64(0)
+    The columns are views into this thread's grow-only scratch, sized
+    by the most sequences the blocks can hold, whose pages stay warm
+    from request to request: this thread's next ``scan_frames``
+    overwrites them."""
+    blocks = np.ascontiguousarray(blocks, np.int64).reshape(-1, 3)
+    n = blocks.shape[0]
+    cap = int(np.where(blocks[:, 2] != 0, blocks[:, 1] // 3 + 1, 1).sum())
+    cols = getattr(_scan_arena, "cols", None)
+    if cols is None or cols[0].size < cap:
+        cap_r = max(1 << 16, 1 << max(cap - 1, 0).bit_length())
+        cols = tuple(np.empty(cap_r, np.int32) for _ in range(5))
+        _scan_arena.cols = cols
+    res = np.empty((n, 3), np.int64)
+    status = ctypes.c_int32(0)
     i32p = ctypes.POINTER(ctypes.c_int32)
-    n = _get().lz4tpu_scan_sequences(
-        _u8ptr(arr), arr.size, lit_base, out_base,
-        out_start.ctypes.data_as(i32p),
-        lit_len.ctypes.data_as(i32p), lit_src.ctypes.data_as(i32p),
-        match_len.ctypes.data_as(i32p), match_off.ctypes.data_as(i32p),
-        out_start.size, ctypes.byref(total), ctypes.byref(reach),
-    )
-    if n < 0:
-        z = lit_len[:0]
-        return int(-n), z, z, z, z, z, 0, 0
-    return (
-        OK,
-        out_start[:n], lit_len[:n], lit_src[:n], match_len[:n],
-        match_off[:n], int(total.value), int(reach.value),
-    )
+    buf8 = _as_u8(buf)
+    done = int(_get().lz4tpu_scan_frames(
+        _u8ptr(buf8), blocks.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        n, lim, *(c.ctypes.data_as(i32p) for c in cols), cols[0].size,
+        res.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.byref(status)))
+    n_seq = int(res[:done, 0].sum())
+    return done, int(status.value), res, tuple(c[:n_seq] for c in cols)
 
 
 def prep_last_ranges() -> np.ndarray:
@@ -338,8 +324,8 @@ def resolve_window(
 
 
 def pack_threads() -> int:
-    """Worker threads for the host-parallel stages (per-block token
-    scan, the fused prep, the mxu2 pack and the provenance resolver):
+    """Worker threads for the host-parallel stages (the fused prep, the
+    mxu2 pack and the provenance resolver):
     the LZ4TPU_PACK_THREADS env var when it parses as a positive
     integer, else 1.
 

@@ -187,6 +187,7 @@ enum {
     LZ4TPU_E_TRUNCATED = 4,        // sequence ran past end of block input
     LZ4TPU_E_DST_OVERFLOW = 5,     // output exceeded dst capacity
     LZ4TPU_E_SEQ_OVERFLOW = 6,     // sequence table capacity exceeded
+    LZ4TPU_E_COORD_RANGE = 7,      // a coordinate would pass int32's range
 };
 
 // Read a 255-chained variable length extension. Returns -1 on truncation.
@@ -394,7 +395,7 @@ int32_t lz4tpu_decode_block_ring(
 // Sequence scan: token grammar -> flat sequence table (device pass 1)
 // ---------------------------------------------------------------------------
 
-// Scans one raw block and appends sequences as structure-of-arrays.
+// Scans one raw block into structure-of-arrays columns at [0, n).
 // For sequence s:
 //   out_start[s] global output position of the sequence (out_base +
 //                bytes decoded so far in this block)
@@ -402,16 +403,22 @@ int32_t lz4tpu_decode_block_ring(
 //   lit_src[s]   offset of those literals: position inside `src` plus
 //                `lit_base` (the block's offset in the whole stream)
 //   match_len[s] match length (0 for a trailing literal-only sequence)
-//   match_off[s] back-reference distance (undefined when match_len == 0)
+//   match_off[s] back-reference distance (1 for a trailing
+//                literal-only sequence; a zero distance is malformed)
 // Returns the number of sequences, or -status on malformed input.
-// *total_out accumulates the decoded size of the block; *min_reach the
-// lowest global position any back-reference touches (INT64_MAX when
-// the block has no matches) — callers compare it against the frame
-// start (reference H_Offset < 0 check, lz4ada.adb:867-874) and the
-// block start (B.Indep demotion).
-int64_t lz4tpu_scan_sequences(
-    const uint8_t* src, int64_t src_len,
-    int64_t lit_base, int64_t out_base,
+// *total_out is the decoded size of the block; *min_reach the lowest
+// global position any back-reference touches (INT64_MAX when the block
+// has no matches) -- callers compare it against the frame start
+// (reference H_Offset < 0 check, lz4ada.adb:867-874) and the block
+// start (B.Indep demotion).
+// With `W`, a sequence whose output position would pass `out_lim`
+// returns -LZ4TPU_E_COORD_RANGE before anything of it is written;
+// without it nothing is written and `out_lim` is not read: the block's
+// grammar, total and reach alone.  Inlined at each call, where `W` is
+// a constant.
+static inline __attribute__((always_inline)) int64_t scan_block(
+    const bool W, const uint8_t* src, int64_t src_len,
+    int64_t lit_base, int64_t out_base, int64_t out_lim,
     int32_t* out_start, int32_t* lit_len, int32_t* lit_src,
     int32_t* match_len, int32_t* match_off,
     int64_t cap, int64_t* total_out, int64_t* min_reach) {
@@ -421,21 +428,26 @@ int64_t lz4tpu_scan_sequences(
     int64_t reach = INT64_C(0x7FFFFFFFFFFFFFFF);
     while (ip < src_len) {
         if (s >= cap) return -LZ4TPU_E_SEQ_OVERFLOW;
+        if (W && out > out_lim) return -LZ4TPU_E_COORD_RANGE;
         const uint8_t token = src[ip++];
         int64_t lit = var_length(src, src_len, &ip, token >> 4);
         if (lit < 0) return -LZ4TPU_E_TRUNCATED;
         if (ip + lit > src_len)
             return (token & 0x0F) ? -LZ4TPU_E_MATCH_AFTER_LIT
                                   : -LZ4TPU_E_TRUNCATED;
-        out_start[s] = (int32_t)out;
-        lit_len[s] = (int32_t)lit;
-        lit_src[s] = (int32_t)(ip + lit_base);
+        if (W) {
+            out_start[s] = (int32_t)out;
+            lit_len[s] = (int32_t)lit;
+            lit_src[s] = (int32_t)(ip + lit_base);
+        }
         ip += lit;
         out += lit;
         if (ip >= src_len) {
             if ((token & 0x0F) != 0) return -LZ4TPU_E_MATCH_AFTER_LIT;
-            match_len[s] = 0;
-            match_off[s] = 1;
+            if (W) {
+                match_len[s] = 0;
+                match_off[s] = 1;
+            }
             ++s;
             break;
         }
@@ -447,8 +459,10 @@ int64_t lz4tpu_scan_sequences(
         if (mlen < 0) return -LZ4TPU_E_TRUNCATED;
         mlen += 4;
         if (out - offset < reach) reach = out - offset;
-        match_len[s] = (int32_t)mlen;
-        match_off[s] = (int32_t)offset;
+        if (W) {
+            match_len[s] = (int32_t)mlen;
+            match_off[s] = (int32_t)offset;
+        }
         out += mlen;
         ++s;
     }
@@ -457,15 +471,108 @@ int64_t lz4tpu_scan_sequences(
     return s;
 }
 
-// Single-block "full" scan: lz4tpu_scan_sequences plus, in the same
-// pass, the cumulative literal position column (litpos), the flat
+// The token scan of a whole request (pipeline.build_seq_table's
+// many-block path): every block, in stream order, into one global
+// sequence table.  `blocks` holds a row (comp_off, comp_len,
+// is_compressed) a block, offsets into `buf`.  A compressed block's
+// sequences follow the previous block's at their global output and
+// input coordinates; an uncompressed block becomes one literal-only
+// pseudo-sequence (out_start at the block's output, lit_len comp_len,
+// lit_src comp_off, match_len 0, match_off 1), so match_off >= 1
+// throughout.  `cap` bounds the sequences: a non-final sequence takes
+// at least 3 input bytes (token, offset), so a block holds at most
+// comp_len / 3 + 1 of them, and an uncompressed block one.
+//
+// `res` gets a row (n_seq, total, min_reach) a block: the block's
+// sequences, its decoded size, and the lowest global position its
+// back-references touch (INT64_MAX with none).  The scan stops at the
+// first block that fails and returns its index (n_blocks when none
+// fails), its status in *status: a malformed token grammar (E_*), or
+// E_COORD_RANGE where one of its input or output coordinates would
+// pass `lim` -- then, its grammar sound, its row holds its total and
+// min_reach, for the caller's checks in stream order.  Nothing of a
+// failed block counts, and no coordinate above `lim` is written.
+int64_t lz4tpu_scan_frames(
+    const uint8_t* buf, const int64_t* blocks, int64_t n_blocks,
+    int64_t lim,
+    int32_t* out_start, int32_t* lit_len, int32_t* lit_src,
+    int32_t* match_len, int32_t* match_off,
+    int64_t cap, int64_t* res, int32_t* status) {
+    int64_t s = 0;
+    int64_t out = 0;
+    *status = LZ4TPU_OK;
+    for (int64_t b = 0; b < n_blocks; ++b) {
+        const int64_t off = blocks[3 * b];
+        const int64_t len = blocks[3 * b + 1];
+        int64_t* row = res + 3 * b;
+        row[0] = 0;
+        row[1] = 0;
+        row[2] = INT64_C(0x7FFFFFFFFFFFFFFF);
+        if (off + len > lim) {
+            *status = LZ4TPU_E_COORD_RANGE;
+            return b;
+        }
+        if (!blocks[3 * b + 2]) {
+            row[1] = len;
+            if (out + len > lim) {
+                *status = LZ4TPU_E_COORD_RANGE;
+                return b;
+            }
+            if (s >= cap) {
+                *status = LZ4TPU_E_SEQ_OVERFLOW;
+                return b;
+            }
+            out_start[s] = (int32_t)out;
+            lit_len[s] = (int32_t)len;
+            lit_src[s] = (int32_t)off;
+            match_len[s] = 0;
+            match_off[s] = 1;
+            row[0] = 1;
+            ++s;
+            out += len;
+            continue;
+        }
+        int64_t total = 0, reach = 0;
+        int64_t n = scan_block(
+            true, buf + off, len, off, out, lim, out_start + s, lit_len + s,
+            lit_src + s, match_len + s, match_off + s, cap - s, &total,
+            &reach);
+        if (n == -LZ4TPU_E_COORD_RANGE) {
+            // the block's own status comes first: its grammar, then
+            // where its output ends
+            n = scan_block(false, buf + off, len, off, out, lim, nullptr,
+                           nullptr, nullptr, nullptr, nullptr, cap - s,
+                           &total, &reach);
+            if (n >= 0) n = -LZ4TPU_E_COORD_RANGE;
+        } else if (n >= 0 && out + total > lim) {
+            n = -LZ4TPU_E_COORD_RANGE;
+        }
+        if (n < 0) {
+            *status = (int32_t)-n;
+            if (n == -LZ4TPU_E_COORD_RANGE) {
+                row[1] = total;
+                row[2] = reach;
+            }
+            return b;
+        }
+        row[0] = n;
+        row[1] = total;
+        row[2] = reach;
+        s += n;
+        out += total;
+    }
+    return n_blocks;
+}
+
+// Single-block "full" scan: scan_block plus, in the same pass, the
+// cumulative literal position column (litpos), the flat
 // literal-stream extraction (the compressed bytes are cache-hot at
 // parse time — cf. the prep's Write_Output-style wild copies), and
 // the S/S+1 sentinel slots on starts/litpos that the fused prep's
 // bisects need.  Error detection order is byte-identical to
-// lz4tpu_scan_sequences (same checks, same sequence positions), so
+// scan_block (same checks, same sequence positions), so
 // the single-block fast path reports the same malformed-input status
-// as the generic path.  Feeds lz4tpu_prep_fused_pre, which skips its
+// as the many-block path.  Feeds lz4tpu_prep_fused_pre, which skips its
 // phase-1 (prefix sums + literal extraction) entirely.
 int64_t lz4tpu_scan_block_full(
     const uint8_t* src, int64_t src_len, int64_t lit_base,

@@ -84,16 +84,19 @@ class DecodeStats:
     verify_s: float = 0.0
     dense_codes_s: float = 0.0
     device_codes: int = 0
+    arena_blocks: int = 0
 
     def read_spans(self, rec, request: int) -> None:
         """The ``*_s`` fields from ``request``'s spans in ``rec``, and
-        ``device_codes`` (substeps whose mxu2 codes the card built) from
-        its counter."""
+        from its counters ``device_codes`` (substeps whose mxu2 codes
+        the card built) and ``arena_blocks`` (blocks the one native
+        scan wrote into the table)."""
         for stage in ("parse", "scan", "plan", "device", "verify"):
             setattr(self, f"{stage}_s",
                     rec.seconds(f"decode.{stage}", request))
         self.dense_codes_s = rec.seconds("decode.dense.codes", request)
         self.device_codes = rec.counters.get("decode.dense.device_codes", 0)
+        self.arena_blocks = rec.counters.get("decode.scan.arena_blocks", 0)
 
     def note_engine(self, name: str, chain) -> None:
         self.engine_chains[name] = self.engine_chains.get(name, 0) + 1
@@ -131,8 +134,9 @@ class SeqTable:
     # native.scan_block_full — lets prep_fused skip its phase 1
     # (prefix sums + literal extraction).  When set, ALL columns are
     # views into per-thread scan scratch, invalidated by the thread's
-    # next build_seq_table — the request pipeline consumes a table
-    # fully before scanning the next request.
+    # next build_seq_table (as are the many-block path's pooled
+    # columns) — the request pipeline consumes a table fully before
+    # scanning the next request.
     pre: tuple | None = None
 
 
@@ -255,17 +259,20 @@ def build_seq_table(
     BatchCapacityExceeded when total output exceeds int32 coordinates
     (callers fall back to the streaming host engine).
 
-    Blocks scan independently, so multi-block streams fan the native
-    token scan across worker threads (the scan runs block-relative —
-    ctypes releases the GIL — and the global output prefix is added to
-    the per-block columns afterwards, a single vectorized pass).
+    Every block but a lone compressed one is scanned by one native call
+    on the calling thread (``native.scan_frames``, span
+    ``decode.scan.blocks``; counter ``decode.scan.arena_blocks``, the
+    blocks it scanned, where a recording is open): it writes the whole
+    table at its global coordinates into this thread's scan scratch,
+    stopping at the first block that fails.  The frame-level checks
+    follow in stream order (span ``decode.scan.join``).
 
-    ``pooled_cols=True`` (internal request paths) enables the
-    single-compressed-block fast path whose columns alias per-thread
-    scan scratch (see SeqTable.pre): valid until this thread's next
-    build_seq_table call, so callers must fully consume the table
-    before building another.  Default False always returns
-    caller-owned arrays.
+    ``pooled_cols=True`` (internal request paths) hands back columns
+    that alias this thread's scan scratch, and enables the
+    single-compressed-block fast path (see SeqTable.pre): valid until
+    this thread's next build_seq_table call, so callers must fully
+    consume the table before building another.  Default False always
+    returns caller-owned arrays.
     """
     from . import native
 
@@ -275,121 +282,74 @@ def build_seq_table(
             and parsed.frames[0].blocks[0].is_compressed):
         return _build_seq_table_single(buf, parsed, reservation, data)
 
-    # Phase A: scan all compressed blocks, block-relative, possibly in
-    # parallel.  Results consumed in stream order below, so error
-    # ordering (first malformed block wins) is preserved.  Blocks at or
-    # past the first coordinate-capacity violation are excluded — the
-    # loop below raises there, so scanning them would be wasted work.
-    comp_blocks = []
-    for frame in parsed.frames:
-        for blk in frame.blocks:
-            if blk.comp_off + blk.comp_len > _BATCH_MAX_OUT:
-                break
-            if blk.is_compressed:
-                comp_blocks.append(blk)
-        else:
-            continue
-        break
-
-    # pooled scan output is only safe when no second scan can clobber
-    # the views before the column concatenation below consumes them —
-    # i.e. exactly one compressed block (the big single-chain case)
-    use_pool = len(comp_blocks) == 1
-
-    def _scan(blk):
-        return native.scan_sequences(
-            buf[blk.comp_off:blk.comp_off + blk.comp_len], blk.comp_off,
-            0, pooled=use_pool,
-        )
-
-    threads = native.pack_threads()
+    blocks = np.array([(b.comp_off, b.comp_len, b.is_compressed)
+                       for f in parsed.frames for b in f.blocks],
+                      np.int64).reshape(-1, 3)
     with trace.span("decode.scan.blocks"):
-        if len(comp_blocks) > 1 and threads > 1:
-            from concurrent.futures import ThreadPoolExecutor
-
-            with ThreadPoolExecutor(
-                max_workers=min(threads, len(comp_blocks))
-            ) as ex:
-                scans = dict(zip(map(id, comp_blocks),
-                                 ex.map(_scan, comp_blocks)))
-        else:
-            scans = {id(blk): _scan(blk) for blk in comp_blocks}
+        done, status, res, cols = native.scan_frames(buf, blocks,
+                                                     _BATCH_MAX_OUT)
+    trace.count("decode.scan.arena_blocks", done)
+    if not pooled_cols:
+        cols = tuple(c.copy() for c in cols)
     with trace.span("decode.scan.join"):
-        return _join_scans(parsed, scans, reservation, data)
+        return _join_scans(parsed, done, status, res, cols, reservation,
+                           data)
 
 
-def _join_scans(parsed: ParseResult, scans: dict, reservation: Reservation,
+def _join_scans(parsed: ParseResult, done: int, status: int,
+                res: np.ndarray, cols: tuple, reservation: Reservation,
                 data) -> SeqTable:
-    """The blocks' scans (``scans``: by ``id`` of the block) joined into
-    one global table in stream order, with the checks that need the
-    global output coordinates."""
+    """The table of :func:`build_seq_table` from the native scan's
+    per-block rows (``res``: ``(n_seq, total, min_reach)`` a block, the
+    first ``done`` committed, block ``done`` failed with ``status``),
+    with the checks that need frames, in stream order: the first
+    malformed block wins."""
     from . import native
 
-    chunks: list[tuple[np.ndarray, ...]] = []
+    # three lists of ints, not a list a block: fewer objects for the
+    # collector to track
+    seqs_of, totals, reaches = res.T.tolist()
     spans: list[BlockSpan] = []
     n_out = 0
     n_seq = 0
+    k = 0
     frame_bounds = [0] * (len(parsed.frames) + 1)
     for frame in parsed.frames:
         frame_start_out = n_out
         frame_span_lo = len(spans)
         frame_crosses = False
         for blk in frame.blocks:
+            if k == done:
+                if blk.comp_off + blk.comp_len > _BATCH_MAX_OUT:
+                    # input coordinates (lit_src / uncompressed
+                    # pseudo-seq src) are int32 too
+                    raise BatchCapacityExceeded(blk.comp_off + blk.comp_len)
+                if status != native.E_COORD_RANGE:
+                    _oracle_rerun(data, reservation)   # always raises
+            seqs, total, min_reach = seqs_of[k], totals[k], reaches[k]
+            k += 1
+            if blk.is_compressed:
+                # Back-reference range check: a match may not reach
+                # before the start of its frame (equivalent to the
+                # reference's H_Offset < 0 check, lz4ada.adb:867-874).
+                if min_reach < frame_start_out:
+                    _oracle_rerun(data, reservation)   # always raises
+                if frame.block_independence and not frame_crosses:
+                    # The reference ignores the B.Indep flag and always
+                    # keeps history (SURVEY.md §2); tolerate streams
+                    # whose flag lies by demoting the frame to linked
+                    # chains.
+                    frame_crosses = min_reach < n_out
             span = BlockSpan(
                 frame_id=frame.frame_id,
-                seq_lo=n_seq, seq_hi=n_seq,
-                out_lo=n_out, out_hi=n_out,
+                seq_lo=n_seq, seq_hi=n_seq + seqs,
+                out_lo=n_out, out_hi=n_out + total,
                 independent=frame.block_independence,
             )
-            if blk.comp_off + blk.comp_len > _BATCH_MAX_OUT:
-                # input coordinates (lit_src / uncompressed pseudo-seq
-                # src) are int32 too
-                raise BatchCapacityExceeded(blk.comp_off + blk.comp_len)
-            if not blk.is_compressed:
-                chunks.append(
-                    (
-                        np.array([n_out], np.int32),
-                        np.array([blk.comp_len], np.int32),
-                        np.array([blk.comp_off], np.int32),
-                        np.array([0], np.int32),
-                        np.array([1], np.int32),
-                    )
-                )
-                n_out += blk.comp_len
-                if n_out > _BATCH_MAX_OUT:
-                    raise BatchCapacityExceeded(n_out)
-                n_seq += 1
-                span.seq_hi = n_seq
-                span.out_hi = n_out
-                spans.append(span)
-                continue
-            status, starts, ll, ls, ml, mo, total, min_reach = (
-                scans.pop(id(blk))
-            )
-            if status != native.OK:
-                _oracle_rerun(data, reservation)   # always raises
-            if n_out:
-                # shift block-relative output coords to global
-                starts = starts + np.int32(n_out)
-            if min_reach < (1 << 62):   # no-match sentinel stays put
-                min_reach += n_out
-            # Back-reference range check: a match may not reach before
-            # the start of its frame (equivalent to the reference's
-            # H_Offset < 0 check, lz4ada.adb:867-874).
-            if min_reach < frame_start_out:
-                _oracle_rerun(data, reservation)   # always raises
-            if frame.block_independence and not frame_crosses:
-                # The reference ignores the B.Indep flag and always
-                # keeps history (SURVEY.md §2); tolerate streams whose
-                # flag lies by demoting the frame to linked chains.
-                frame_crosses = min_reach < span.out_lo
-            chunks.append((starts, ll, ls, ml, mo))
             n_out += total
             if n_out > _BATCH_MAX_OUT:
                 raise BatchCapacityExceeded(n_out)
-            n_seq += ll.size
-            span.seq_hi = n_seq
-            span.out_hi = n_out
+            n_seq += seqs
             spans.append(span)
         if frame_crosses:
             for s in spans[frame_span_lo:]:
@@ -405,11 +365,6 @@ def _join_scans(parsed: ParseResult, scans: dict, reservation: Reservation,
             if produced < frame.content_size:
                 raise err_content_size_leftover(frame.content_size - produced)
 
-    if chunks:
-        cols = [np.concatenate([c[i] for c in chunks]) for i in range(5)]
-    else:
-        cols = [np.zeros(0, np.int32) for _ in range(5)]
-    np.maximum(cols[4], 1, out=cols[4])
     return SeqTable(
         out_start=cols[0],
         lit_len=cols[1],

@@ -342,7 +342,10 @@ class DecodeSession:
         # returns once the kernels are queued and the card overlaps the
         # next request's prep.
         # the mxu2 fault flags are read by the collector, not here: the
-        # next request's prep does not wait for this one's kernels
+        # next request's prep does not wait for this one's kernels.
+        # The table's columns alias this thread's scan scratch: the plan
+        # and the staging copies read them before this returns, and the
+        # ticket reads only n_out and the frame bounds of its table.
         faults: list = []
         segs = pl.build_device_segments(buf, table, plan, self.device,
                                         faults=faults)

@@ -30,7 +30,10 @@ was handed and how it was planned: ``decode.frames`` and
 ``decode.fused.isolated`` (chains prepared again one by one, inside the
 span ``decode.plan.isolate``, after the fused prep of them all together
 overflowed), read from a recording; no benchmark metric reads them
-yet.  The span ``decode.dense.codes`` (inside ``decode.engine.dense``:
+yet.  The counter ``decode.scan.arena_blocks`` (blocks the one native
+scan of a many-block request wrote into the table, inside
+``decode.scan.blocks``) is read by ``DecodeStats`` and ``lz4-bench
+--stats`` too.  The span ``decode.dense.codes`` (inside ``decode.engine.dense``:
 the staging of the mxu2 chains' columns and kernel H9's launches) and
 the counter ``decode.dense.device_codes`` (substeps whose mxu2 codes the
 card built, a request) are read by ``DecodeStats`` and ``lz4-bench

@@ -73,6 +73,31 @@ def test_counters_are_what_parse_and_plan_report(lineitem):
     assert planned["fused"] == 0
 
 
+def test_the_one_scan_counts_the_blocks_it_wrote(lineitem):
+    """``decode.scan.arena_blocks``: every block of a many-frame request,
+    scanned by the one native call straight into the table; none on a
+    one-block request (the single-block scan); ``DecodeStats`` reads
+    it."""
+    _bufs, frames = lineitem
+    data = b"".join(frames)
+    parsed, _ = _plan(data)
+    n_blocks = sum(len(f.blocks) for f in parsed.frames)
+    assert n_blocks >= len(frames) > 1
+    with trace.recording() as rec:
+        lt.decompress_to_device(data, device="cpu", verify="device")
+    assert rec.counters["decode.scan.arena_blocks"] == \
+        rec.counters["decode.blocks"] == n_blocks
+    st = pipeline.DecodeStats()
+    assert lt.decompress_device(data, device="cpu", stats=st) == \
+        b"".join(bytes(b) for b in _bufs)
+    assert st.arena_blocks == st.n_blocks == n_blocks
+    one = lt.compress(frames[0] * 3)
+    with trace.recording() as rec:
+        lt.decompress_to_device(one, device="cpu", verify="device")
+    assert rec.counters["decode.blocks"] == 1
+    assert rec.counters.get("decode.scan.arena_blocks", 0) == 0
+
+
 def _text_frames(n_frames: int) -> tuple:
     """Frames of fragment text that the fused engine takes, one chain
     each."""

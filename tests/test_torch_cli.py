@@ -191,8 +191,16 @@ def test_bench_encode(backend, files):
 
 
 def test_bench_stats(files):
-    rc, _out, err = _same(["lz4-bench", "--reps", "1", "--backend",
-                           "device", "--stats", files["frame"]])
+    """The JAX package's lines, and the port's own count of the blocks
+    its one native scan wrote into the table (two 64 KiB blocks)."""
+    argv = ["lz4-bench", "--reps", "1", "--backend", "device", "--stats",
+            files["frame"]]
+    want = _run(jcli, argv)
+    rc, out, err = _run(tcli, argv)
+    assert (rc, out) == want[:2]
+    assert "\n  arena_blocks=2\n" in err
+    assert _masked(err.replace("  arena_blocks=2\n", "")) == \
+        _masked(want[2])
     assert rc == 0 and "engines=" in err
 
 

@@ -246,7 +246,7 @@ def test_counts_from_threads_add_up():
 STATS_FIELDS = ["comp_bytes", "out_bytes", "n_frames", "n_blocks",
                 "n_chains", "n_seqs", "engine_chains", "engine_bytes",
                 "parse_s", "scan_s", "plan_s", "device_s", "verify_s",
-                "dense_codes_s", "device_codes"]
+                "dense_codes_s", "device_codes", "arena_blocks"]
 
 
 def test_decode_stats_from_spans(two_blocks):
@@ -259,7 +259,8 @@ def test_decode_stats_from_spans(two_blocks):
         # another request in the same recording leaves st as it was
         lt.decompress_device(frame, device="cpu")
     assert (st.comp_bytes, st.out_bytes, st.n_frames, st.n_blocks,
-            st.n_chains) == (len(frame), len(raw), 1, 2, 2)
+            st.n_chains, st.arena_blocks) == (len(frame), len(raw), 1, 2,
+                                              2, 2)
     assert sum(st.engine_chains.values()) == 2
     req = outer.spans[0]
     assert req.name == "decode"
