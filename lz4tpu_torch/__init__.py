@@ -11,7 +11,10 @@ The device side covers the batched decode (:func:`decompress_to_device`,
 :func:`decompress_device`, ``decompress(backend="device")``) with its
 engines (sparse programs, the fused kernel, the mxu2 kernel, the
 segment-copy kernel, the byte-parallel resolver), checksum
-verification on the device (``verify="device"``), the request pipeline
+verification on the device (``verify="device"``), raw LZ4 blocks with
+no frame, a request of them in one call
+(:func:`decompress_blocks_to_device`: Parquet's LZ4_RAW pages), the
+request pipeline
 (:class:`DecodeSession`: a prep thread with its own CUDA stream) and the
 sharded decode over a mesh of devices and processes
 (:func:`decompress_sharded`, ``lz4tpu_torch.dist``).  The encoder
@@ -50,7 +53,11 @@ from .api import (
     decompress_into,
     min_buffer_size,
 )
-from .pipeline import decompress_device, decompress_to_device
+from .pipeline import (
+    decompress_blocks_to_device,
+    decompress_device,
+    decompress_to_device,
+)
 from .dist import decompress_sharded
 
 
@@ -81,6 +88,7 @@ __all__ = [
     "min_buffer_size",
     "decompress_to_device",
     "decompress_device",
+    "decompress_blocks_to_device",
     "DecodeSession",
     "decompress_sharded",
     "Reservation",

@@ -21,6 +21,11 @@ payload-level error is detected, the offending data is re-run through
 the streaming oracle so the diagnostic (including embedded positions)
 is byte-identical to the reference's.
 
+A request of raw LZ4 blocks (no frame: :func:`decompress_blocks_to_device`,
+the sizes from the caller's table) comes in by its own front
+(:func:`_raw_front`) and shares the token scan, the classifier and the
+executor with the frame entries.
+
 ``device`` is explicit everywhere: ``"cuda"`` runs the kernels and
 raises when CUDA is absent; ``"cpu"`` runs every engine's plain PyTorch
 version.
@@ -85,18 +90,23 @@ class DecodeStats:
     dense_codes_s: float = 0.0
     device_codes: int = 0
     arena_blocks: int = 0
+    raw_s: float = 0.0
+    raw_literal_bytes: int = 0
 
     def read_spans(self, rec, request: int) -> None:
         """The ``*_s`` fields from ``request``'s spans in ``rec``, and
         from its counters ``device_codes`` (substeps whose mxu2 codes
-        the card built) and ``arena_blocks`` (blocks the one native
-        scan wrote into the table)."""
-        for stage in ("parse", "scan", "plan", "device", "verify"):
+        the card built), ``arena_blocks`` (blocks the one native scan
+        wrote into the table) and ``raw_literal_bytes`` (literal bytes
+        the scan of a request of raw blocks found)."""
+        for stage in ("parse", "scan", "plan", "device", "verify", "raw"):
             setattr(self, f"{stage}_s",
                     rec.seconds(f"decode.{stage}", request))
         self.dense_codes_s = rec.seconds("decode.dense.codes", request)
         self.device_codes = rec.counters.get("decode.dense.device_codes", 0)
         self.arena_blocks = rec.counters.get("decode.scan.arena_blocks", 0)
+        self.raw_literal_bytes = rec.counters.get(
+            "decode.raw.literal_bytes", 0)
 
     def note_engine(self, name: str, chain) -> None:
         self.engine_chains[name] = self.engine_chains.get(name, 0) + 1
@@ -285,15 +295,25 @@ def build_seq_table(
     blocks = np.array([(b.comp_off, b.comp_len, b.is_compressed)
                        for f in parsed.frames for b in f.blocks],
                       np.int64).reshape(-1, 3)
-    with trace.span("decode.scan.blocks"):
-        done, status, res, cols = native.scan_frames(buf, blocks,
-                                                     _BATCH_MAX_OUT)
-    trace.count("decode.scan.arena_blocks", done)
+    done, status, res, cols = _scan_rows(buf, blocks)
     if not pooled_cols:
         cols = tuple(c.copy() for c in cols)
     with trace.span("decode.scan.join"):
         return _join_scans(parsed, done, status, res, cols, reservation,
                            data)
+
+
+def _scan_rows(buf: np.ndarray, blocks: np.ndarray) -> tuple:
+    """``native.scan_frames`` over the block rows ``(comp_off, comp_len,
+    is_compressed)`` (span ``decode.scan.blocks``; counter
+    ``decode.scan.arena_blocks``): its ``(done, status, res, cols)``,
+    the columns in this thread's scan scratch."""
+    from . import native
+
+    with trace.span("decode.scan.blocks"):
+        out = native.scan_frames(buf, blocks, _BATCH_MAX_OUT)
+    trace.count("decode.scan.arena_blocks", out[0])
+    return out
 
 
 def _join_scans(parsed: ParseResult, done: int, status: int,
@@ -589,6 +609,112 @@ def _decode_front(data, reservation: Reservation) -> tuple:
         table = build_seq_table(buf, parsed, reservation, data,
                                 pooled_cols=True)
     return buf, parsed, table
+
+
+def _raw_front(data, comp_sizes, out_sizes,
+               stats: DecodeStats | None = None) -> tuple:
+    """The front of a request of raw LZ4 blocks (no frame), laid end to
+    end in ``data``, block ``k`` ``comp_sizes[k]`` bytes long and stated
+    to decode to ``out_sizes[k]``: the block rows of the shared token
+    scan built from the sizes alone, the scan into one sequence table,
+    each block an independent chain, and the plan; ``(buf, table,
+    plan)``.
+
+    Span ``decode.raw`` around it all, ``decode.scan`` and
+    ``decode.plan`` inside; counters ``decode.raw.blocks`` (blocks
+    handed in) and ``decode.raw.literal_bytes`` (literal bytes the scan
+    found), each a request, where a recording is open.  Raises, for the
+    first block at fault in block order, what
+    ``Decompressor.for_block`` raises for a malformed block (its
+    grammar, or a match that reaches before the block's start), and
+    ``err_content_size_exceeded`` / ``err_content_size_leftover`` for a
+    block that decodes to more or fewer bytes than stated;
+    ``BatchCapacityExceeded`` past the int32 coordinates."""
+    buf = np.frombuffer(data, np.uint8)
+    comp = _block_sizes(comp_sizes, "comp_sizes")
+    want = _block_sizes(out_sizes, "out_sizes")
+    if comp.shape != want.shape:
+        raise ValueError(f"{comp.size} comp_sizes but {want.size} out_sizes")
+    ends = np.cumsum(comp)
+    if ends.size and ends[-1] > buf.size:
+        raise ValueError(f"the blocks' compressed sizes add up to "
+                         f"{int(ends[-1])} bytes, past the {buf.size} of "
+                         "data")
+    with trace.span("decode.raw"):
+        trace.count("decode.raw.blocks", comp.size)
+        with trace.span("decode.scan"):
+            blocks = np.stack([ends - comp, comp, np.ones_like(comp)], 1)
+            table = _raw_table(buf, blocks, want, *_scan_rows(buf, blocks))
+        if trace.active():
+            trace.count("decode.raw.literal_bytes", int(table.lit_len.sum()))
+        with trace.span("decode.plan"):
+            plan = plan_decode(buf, None, table, stats)
+    return buf, table, plan
+
+
+def _block_sizes(sizes, name: str) -> np.ndarray:
+    out = np.asarray(sizes, np.int64).reshape(-1)
+    if out.size and out.min() < 0:
+        raise ValueError(f"{name} holds a negative size")
+    return out
+
+
+def _raw_table(buf: np.ndarray, blocks: np.ndarray, want: np.ndarray,
+               done: int, status: int, res: np.ndarray,
+               cols: tuple) -> SeqTable:
+    """The table of :func:`_raw_front` from the scan of its block rows,
+    with each block held to its stated size and to its own start."""
+    from . import native
+
+    n = blocks.shape[0]
+    # block `done`'s row is sound where only its coordinates failed
+    sound = done + (done < n and status == native.E_COORD_RANGE
+                    and blocks[done, 0] + blocks[done, 1] <= _BATCH_MAX_OUT)
+    seqs, totals, reaches = res[:sound].T
+    out_hi = np.cumsum(totals)
+    out_lo = out_hi - totals
+    bad = np.flatnonzero((reaches < out_lo) | (totals != want[:sound]))
+    if bad.size:
+        k = int(bad[0])
+        if reaches[k] < out_lo[k]:
+            _raw_block_error(buf, blocks[k])
+        if totals[k] > want[k]:
+            raise err_content_size_exceeded()
+        raise err_content_size_leftover(int(want[k] - totals[k]))
+    if done < n:
+        if status != native.E_COORD_RANGE:
+            _raw_block_error(buf, blocks[done])
+        raise BatchCapacityExceeded(int(blocks[done, 0] + blocks[done, 1]))
+    seq_hi = np.cumsum(seqs)
+    spans = [BlockSpan(frame_id=k, seq_lo=s_hi - s, seq_hi=s_hi, out_lo=lo,
+                       out_hi=hi, independent=True)
+             for k, (s, s_hi, lo, hi) in enumerate(zip(
+                 seqs.tolist(), seq_hi.tolist(), out_lo.tolist(),
+                 out_hi.tolist()))]
+    return SeqTable(
+        out_start=cols[0], lit_len=cols[1], lit_src=cols[2],
+        match_len=cols[3], match_off=cols[4],
+        n_out=int(out_hi[-1]) if n else 0,
+        frame_out_start=np.concatenate([[0], out_hi]).astype(np.int64),
+        spans=spans,
+    )
+
+
+def _raw_block_error(buf: np.ndarray, row: np.ndarray) -> None:
+    """Raise what the streaming engine's raw-block mode
+    (``Decompressor.for_block``) raises for the block at ``row``
+    ``(comp_off, comp_len, _)`` of ``buf``; always raises, with the
+    no-progress diagnostic where that engine stalls or finishes."""
+    from .stream import Decompressor
+
+    src = buf[int(row[0]):int(row[0] + row[1])]
+    ctx = Decompressor.for_block(src.size)
+    consumed = stall = 0
+    while consumed < src.size and stall <= 4:
+        got, _chunk = ctx.update(src[consumed:])
+        consumed += got
+        stall = stall + 1 if got == 0 else 0
+    raise DataCorruption("Decoder made no progress; corrupt input.")
 
 
 def _verify_checksums_device(
@@ -942,6 +1068,61 @@ def _decompress_to_device_batch(data, reservation, dev: torch.device,
             _verify_checksums_device(buf, parsed, out_dev, table,
                                      comp_dev=comp_dev)
     return out_dev
+
+
+def decompress_blocks_to_device(
+    data,
+    comp_sizes,
+    out_sizes,
+    *,
+    device="cuda",
+    stats: DecodeStats | None = None,
+) -> torch.Tensor:
+    """Decode independent raw LZ4 blocks (the block format with no
+    frame, no checksum and no size word: Parquet's LZ4_RAW pages) into
+    one uint8 tensor on ``device``: the blocks' output end to end,
+    ``sum(out_sizes)`` bytes.
+
+    The batched form of nvCOMP's LZ4 API: ``data`` (bytes-like, a numpy
+    array among them) holds the blocks end to end, block ``k``
+    ``comp_sizes[k]`` bytes long and stated to decode to exactly
+    ``out_sizes[k]`` bytes; a zero-length block decodes to nothing.  The
+    request runs through its own front (:func:`_raw_front`: no frame
+    parse) and then the frame entries' scan, planner and executor.
+    There is no host fallback: a malformed block raises what
+    ``Decompressor.for_block`` raises for it, a block that decodes to
+    another size than stated raises ``DataCorruption``, sizes that run
+    past ``data`` raise ``ValueError``.  ``device`` as in
+    :func:`decompress_to_device`; ``stats``: filled in place, its times
+    from the request's spans (``raw_s``: the front)."""
+    dev = _resolve_device(device)
+    with (trace.recording() if stats is not None
+          else contextlib.nullcontext()) as rec, trace.span("decode") as req:
+        try:
+            try:
+                buf, table, plan = _raw_front(data, comp_sizes, out_sizes,
+                                              stats)
+            except BatchCapacityExceeded as e:
+                raise ValueError(
+                    "decompress_blocks_to_device: the blocks decode past "
+                    "2**31-1 bytes, beyond the batched pipeline's int32 "
+                    "coordinates; split the request") from e
+            if stats is not None:
+                stats.comp_bytes = buf.size
+                stats.out_bytes = table.n_out
+                stats.n_blocks = len(table.spans)
+                stats.n_seqs = int(table.out_start.size)
+            if table.n_out == 0:
+                return torch.zeros(0, dtype=torch.uint8, device=dev)
+            faults: list = []
+            segs = build_device_segments(buf, table, plan, dev,
+                                         faults=faults)
+            out = assemble_device_segments(segs, table.n_out, dev)
+            mx.raise_on_fault(*faults)
+            return out
+        finally:
+            if stats is not None:
+                stats.read_spans(rec, req.request)
 
 
 def decompress_device(

@@ -33,7 +33,14 @@ overflowed), read from a recording; no benchmark metric reads them
 yet.  The counter ``decode.scan.arena_blocks`` (blocks the one native
 scan of a many-block request wrote into the table, inside
 ``decode.scan.blocks``) is read by ``DecodeStats`` and ``lz4-bench
---stats`` too.  The span ``decode.dense.codes`` (inside ``decode.engine.dense``:
+--stats`` too.  A request of raw blocks
+(``pipeline.decompress_blocks_to_device``) records the span
+``decode.raw`` around its front (the block table, ``decode.scan`` and
+``decode.plan`` inside) and the counters ``decode.raw.blocks`` (blocks
+handed in) and ``decode.raw.literal_bytes`` (literal bytes its scan
+found), each a request, beside the ``decode.chains.*`` counters;
+``DecodeStats`` reads the span and the literal bytes, and the
+benchmark's ``raw_front_ms.decode`` times the front.  The span ``decode.dense.codes`` (inside ``decode.engine.dense``:
 the staging of the mxu2 chains' columns and kernel H9's launches) and
 the counter ``decode.dense.device_codes`` (substeps whose mxu2 codes the
 card built, a request) are read by ``DecodeStats`` and ``lz4-bench

@@ -246,7 +246,8 @@ def test_counts_from_threads_add_up():
 STATS_FIELDS = ["comp_bytes", "out_bytes", "n_frames", "n_blocks",
                 "n_chains", "n_seqs", "engine_chains", "engine_bytes",
                 "parse_s", "scan_s", "plan_s", "device_s", "verify_s",
-                "dense_codes_s", "device_codes", "arena_blocks"]
+                "dense_codes_s", "device_codes", "arena_blocks", "raw_s",
+                "raw_literal_bytes"]
 
 
 def test_decode_stats_from_spans(two_blocks):
@@ -262,6 +263,7 @@ def test_decode_stats_from_spans(two_blocks):
             st.n_chains, st.arena_blocks) == (len(frame), len(raw), 1, 2,
                                               2, 2)
     assert sum(st.engine_chains.values()) == 2
+    assert st.raw_s == st.raw_literal_bytes == 0     # a frame request
     req = outer.spans[0]
     assert req.name == "decode"
     for stage in ("parse", "scan", "plan", "device", "verify"):
